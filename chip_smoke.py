@@ -1,0 +1,469 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (`src/repro_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+1. Builds the four CUDA kernels from `src/repro_torch/csrc/` for sm_90a.
+2. Holds each kernel against its plain PyTorch version on the card over
+   the sweep shapes and the main path's shapes, in f32 and bf16.
+3. Runs the main path, NSGA-II on xcvu11p (80 conv units, pop 64, 200
+   generations), through `repro_torch.core.evolve.run`, once unfused and
+   once fused, with every launch counter set to 0 just before each run and
+   read just after; checks the champion's legality, the improvement over
+   the initial population, and the final objectives against the plain
+   versions on the CPU.  Then runs the quickstart entry point on the card
+   for a few generations and checks the launches of its evaluation and
+   its final Pareto sort.
+4. Times each kernel and its plain version with CUDA events at the path's
+   shapes and at 2048 rows (and each kernel's device time from a
+   torch.profiler trace), and a generation against its rank peeling and
+   its device busy share.
+
+Prints the card's name and power limit, one JSON line of kernel figures,
+and as its last line `{"ok": true, "device": {...}}`.  Exits non-zero,
+without that line, when no CUDA device is present or any phase fails.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+FPGA_DEVICE = "xcvu11p"
+POP, GENS, SEED = 64, 200, 0
+SWEEP_ROWS = (1, 7, 64, 127, 128, 129, 200, 2048)
+# (gids, nets, units, blocks): the reference's tile-crossing sweep extents,
+# then the main path's xcvu11p extents
+EVAL_SHAPES = ((37, 11, 5, 7), (96, 511, 3, 28), (96, 512, 3, 28),
+               (96, 513, 3, 28), (640, 40, 127, 5), (640, 40, 128, 5),
+               (640, 40, 129, 5), (3640, 999, 130, 28), (2240, 1999, 80, 28))
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
+
+
+def tol(dtype):
+    import torch
+    if dtype == torch.bfloat16:
+        return dict(rtol=2e-2, atol=2e-2)
+    return dict(rtol=1e-5, atol=1e-6)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------ phase 2
+
+def check_kernels(rng):
+    """Every kernel against its plain version on the card; returns the max
+    abs error of each kernel over the f32 cases."""
+    import torch
+
+    from repro_torch.kernels import bbox, domination, fused_eval, ref, wirelength
+
+    dev = torch.device("cuda")
+    errs = {"fused_eval": 0.0, "wirelength2": 0.0, "maxbbox": 0.0, "domination": 0.0}
+    n_cases = dict.fromkeys(errs, 0)
+
+    def coords(*shape):
+        return torch.tensor(rng.normal(size=shape) * 50, dtype=torch.float32, device=dev)
+
+    def ints(hi, *shape):
+        return torch.tensor(rng.integers(0, hi, size=shape), dtype=torch.int32, device=dev)
+
+    def close(name, got, want, dtype):
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        torch.testing.assert_close(got, want, **tol(dtype), msg=lambda m: f"{name}: {m}")
+        if dtype == torch.float32:
+            errs[name] = max(errs[name], float((got - want).abs().max()))
+        n_cases[name] += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for g, n, u, b in EVAL_SHAPES:
+            src, dst, uidx = ints(g, n), ints(g, n), ints(g, u, b)
+            w = (coords(n).abs() * 0.002).to(dtype)
+            for p in SWEEP_ROWS:
+                cx, cy = coords(p, g).to(dtype), coords(p, g).to(dtype)
+                close("fused_eval", fused_eval.fused_eval(cx, cy, src, dst, w, uidx),
+                      ref.fused_eval_ref(cx, cy, src, dst, w, uidx), dtype)
+        for n in (7, 512, 1999, 4097):
+            for p in SWEEP_ROWS:
+                xs = [coords(p, n).to(dtype) for _ in range(4)]
+                for w in ((coords(n).abs() * 0.1).to(dtype),
+                          (coords(p, n).abs() * 0.1).to(dtype)):
+                    close("wirelength2", wirelength.wirelength2(*xs, w),
+                          ref.wirelength2_ref(*xs, w), dtype)
+        for u, b in ((6, 28), (80, 28), (123, 28), (130, 5), (128, 32)):
+            for p in SWEEP_ROWS:
+                ux, uy = coords(p, u, b).to(dtype), coords(p, u, b).to(dtype)
+                close("maxbbox", bbox.maxbbox(ux, uy), ref.maxbbox_ref(ux, uy), dtype)
+        for p in (1, 3, 7, 64, 127, 128, 129, 200, 2048):
+            for m in (2, 3):
+                objs = torch.tensor(rng.uniform(size=(p, m)), dtype=torch.float32)
+                if p >= 2:
+                    objs[1] = objs[0]                  # full duplicate row
+                if p >= 4:
+                    objs[3, 0] = objs[2, 0]            # tie on one objective
+                if p >= 8:
+                    objs[p // 2:] = torch.round(objs[p // 2:] * 4) / 4   # many ties
+                objs = objs.to(device=dev, dtype=dtype)
+                want, want_cnt = ref.domination_counts_ref(objs)
+                got = domination.domination(objs)
+                got2, cnt = domination.domination_counts(objs)
+                torch.cuda.synchronize()
+                for d in (got, got2):
+                    if not torch.equal(d, want):
+                        raise AssertionError(f"domination differs at P={p}, M={m}, {dtype}")
+                if not torch.equal(cnt, want_cnt):
+                    raise AssertionError(f"domination counts differ at P={p}, M={m}, {dtype}")
+                n_cases["domination"] += 1
+
+    # bounds: kernels read nothing past the real N, U and P -- the tails of
+    # the buffers they are sliced from hold indices far out of range and
+    # huge coordinates, which would show as NaN or a wrong max if read.
+    g, n, u, b, p = 96, 513, 9, 7, 4
+    src_buf, dst_buf = ints(g, 2 * n), ints(g, 2 * n)
+    src_buf[n:] = g + 1000
+    dst_buf[n:] = g + 1000
+    uidx_buf = ints(g, 2 * u, b)
+    uidx_buf[u:] = g + 1000
+    cx_buf, cy_buf = coords(2 * p, g), coords(2 * p, g)
+    cx_buf[p:], cy_buf[p:] = 3.0e37, -3.0e37
+    w = coords(n).abs() * 0.01
+    src, dst, uidx, cx, cy = src_buf[:n], dst_buf[:n], uidx_buf[:u], cx_buf[:p], cy_buf[:p]
+    close("fused_eval", fused_eval.fused_eval(cx, cy, src, dst, w, uidx),
+          ref.fused_eval_ref(cx, cy, src, dst, w, uidx), torch.float32)
+    # an index out of range yields NaN instead of a read out of bounds
+    bad = fused_eval.fused_eval(cx, cy, src_buf[: n + 1], dst_buf[: n + 1],
+                                coords(n + 1).abs(), uidx)
+    torch.cuda.synchronize()
+    if not torch.isnan(bad).all():
+        raise AssertionError("fused_eval: an out-of-range net index did not yield NaN")
+    return errs, n_cases
+
+
+# ------------------------------------------------------------ phase 3
+
+def run_main_path(problem, fused: bool, counters):
+    import torch
+
+    from repro_torch.core import evolve, hyper, nsga2
+    from repro_torch.core import genotype as G
+    from repro_torch.core import objectives as O
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    cfg = nsga2.NSGA2Config(pop_size=POP, fused=fused)
+    init = nsga2.init_state(problem, torch.Generator(device=dev).manual_seed(SEED),
+                            hyper.tracify(cfg, dev))
+    init_best = float(O.combined_metric(init["objs"]).min())
+
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = evolve.run(problem, "nsga2", cfg,
+                             torch.Generator(device=dev).manual_seed(SEED), GENS,
+                             device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: k.launches for k in counters}
+
+    if hist.shape != (GENS, 2) or not torch.isfinite(hist).all():
+        raise AssertionError(f"history is not finite [{GENS}, 2]")
+    final = O.combined_metric(state["objs"])
+    final_best = float(final.min())
+    if not final_best < init_best:
+        raise AssertionError(f"no improvement: {final_best} vs initial {init_best}")
+    champ = int(torch.argmin(final))
+    O.assert_valid(problem, G.tree_map(lambda a: a[champ], state["pop"]))
+    # the card's objectives against the plain versions on the CPU
+    bx, by = G.decode(problem, state["pop"])
+    tabs = [torch.as_tensor(a) for a in (problem.net_src, problem.net_dst, problem.net_w)]
+    uidx = O.unit_index(problem, "cpu")
+    want = ref.fused_eval_ref(bx.cpu(), by.cpu(), *tabs, uidx)
+    torch.testing.assert_close(state["objs"].cpu(), want, **tol(torch.float32))
+    return dict(seconds=seconds, gens_per_s=GENS / seconds,
+                evals_per_s=POP * (GENS + 1) / seconds, init_best=init_best,
+                final_best=final_best, launches=launches, coords=(bx, by),
+                objs=state["objs"])
+
+
+def run_quickstart(counters, generations: int = 5):
+    """The user's entry point on the card; returns its launches and output."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import quickstart
+
+    for k in counters:
+        k.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        quickstart.main(["--device", FPGA_DEVICE, "--generations", str(generations),
+                         "--pop", str(POP)])
+    text = out.getvalue()
+    if "validated legal" not in text or "Pareto front" not in text:
+        raise AssertionError(f"quickstart output lacks its result:\n{text}")
+    return {k: k.launches for k in counters}, text
+
+
+# ------------------------------------------------------------ phase 4
+
+def time_ms(fn, iters=200) -> float:
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, symbol: str, iters: int = 50, traces: int = 3):
+    """Mean device time (ms) of one launch of the kernels whose names hold
+    `symbol`, from a torch.profiler trace.  A trace now and then comes back
+    without the kernel's events; up to `traces` are taken, and None means
+    none of them showed it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for e in prof.key_averages():
+            if symbol in e.key:
+                us += e.device_time_total
+                count += e.count
+        if count and us:
+            return us / count / 1e3
+    return None
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_figures(problem, coords, objs, errs, launches):
+    import torch
+
+    from repro_torch.core.tables import problem_tensors
+    from repro_torch.kernels import bbox, domination, fused_eval, ref, wirelength
+
+    tabs = problem_tensors(problem, "cuda")
+    s, d, w, uidx = tabs.net_src, tabs.net_dst, tabs.net_w, tabs.unit_index
+    n, (u, b) = s.shape[0], uidx.shape
+    objs128 = torch.cat([objs, objs.flip(0) * 1.01]).contiguous()
+    rows = {}
+
+    def shapes_at(p):
+        reps = math.ceil(p / coords[0].shape[0])
+        bx, by = (c.repeat(reps, 1)[:p].contiguous() for c in coords)
+        g = bx.shape[1]
+        ends = [a.index_select(1, idx).contiguous() for idx in (s, d) for a in (bx, by)]
+        x1, y1, x2, y2 = ends[0], ends[1], ends[2], ends[3]
+        ux, uy = bx.reshape(p, u, b), by.reshape(p, u, b)
+        o = objs128 if p == 2 * POP else torch.rand(p, 2, device="cuda")
+        return {
+            "fused_eval": (lambda: fused_eval.fused_eval(bx, by, s, d, w, uidx),
+                           lambda: ref.fused_eval_ref(bx, by, s, d, w, uidx),
+                           8 * p * g + 12 * n + 4 * u * b + 8 * p,
+                           p * (8 * n + 4 * u * b + 3 * u)),
+            "wirelength2": (lambda: wirelength.wirelength2(x1, y1, x2, y2, w),
+                            lambda: ref.wirelength2_ref(x1, y1, x2, y2, w),
+                            16 * p * n + 4 * n + 4 * p, 8 * p * n),
+            "maxbbox": (lambda: bbox.maxbbox(ux, uy), lambda: ref.maxbbox_ref(ux, uy),
+                        8 * p * u * b + 4 * p, p * (4 * u * b + 3 * u)),
+            "domination": (lambda: domination.domination_counts(o),
+                           lambda: ref.domination_counts_ref(o),
+                           8 * p + p * p + 4 * p, 6 * p * p),
+        }
+
+    at_path = {k: v for k, v in shapes_at(POP).items() if k != "domination"}
+    at_path["domination"] = shapes_at(2 * POP)["domination"]
+    at_2048 = shapes_at(2048)
+    symbols = {"fused_eval": "fused_eval_kernel", "wirelength2": "wirelength_kernel",
+               "maxbbox": "bbox_kernel", "domination": "domination_kernel"}
+    meta = {
+        "fused_eval": ("src/repro_torch/csrc/fused_eval.cu",
+                       "src/repro/kernels/fused_eval.py:106 (fused_eval_pallas, body :52)",
+                       f"[{POP}, {coords[0].shape[1]}] f32, N={n}, U={u}, B={b}"),
+        "wirelength2": ("src/repro_torch/csrc/wirelength.cu",
+                        "src/repro/kernels/wirelength.py:51 (wirelength2_pallas, body :28)",
+                        f"[{POP}, {n}] f32, w [{n}]"),
+        "maxbbox": ("src/repro_torch/csrc/bbox.cu",
+                    "src/repro/kernels/bbox.py:56 (maxbbox_pallas, body :27)",
+                    f"[{POP}, {u}, {b}] f32"),
+        "domination": ("src/repro_torch/csrc/domination.cu",
+                       "src/repro/kernels/fused_eval.py:162 (domination_counts_pallas, "
+                       "body :131); src/repro/kernels/domination.py:44 "
+                       "(domination_pallas, body :23)",
+                       f"[{2 * POP}, 2] f32 with counts"),
+    }
+    for name, (src, replaces, shape) in meta.items():
+        kern, plain, nbytes, nops = at_path[name]
+        k2, p2, nbytes2, nops2 = at_2048[name]
+        bms, by_what = bound_ms(nbytes, nops)
+        bms2, by2 = bound_ms(nbytes2, nops2)
+        rows[name] = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "bound_ms": bms, "bound_by": by_what, "library_ms": None,
+            "shape": shape, "ms_2048": time_ms(k2), "plain_ms_2048": time_ms(p2),
+            "bound_ms_2048": bms2, "bound_by_2048": by2,
+            "device_ms": device_ms(kern, symbols[name]),
+            "device_ms_2048": device_ms(k2, symbols[name]),
+        }
+    return [rows[k] for k in meta]
+
+
+def generation_profile(problem):
+    """Per generation at the path's shapes: host-clock time of a step and of
+    its two rank peels (P and 2P), and the device's busy share of a step
+    (kernel time in a torch.profiler trace over the step's wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import hyper, nsga2
+
+    out = {}
+    for fused in (False, True):
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        cfg = hyper.tracify(nsga2.NSGA2Config(pop_size=POP, fused=fused), dev)
+        st = nsga2.init_state(problem, gen, cfg)
+        both = torch.cat([st["objs"], st["objs"].flip(0) * 1.01]).contiguous()
+
+        def timed(fn, reps=20):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps
+
+        def step():
+            return nsga2.step_impl(problem, cfg, st, gen)
+
+        step_s = timed(step)
+        peel_s = timed(lambda: (nsga2.nondominated_rank(st["objs"], fused),
+                                nsga2.nondominated_rank(both, fused)))
+        reps = 5
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        out["fused" if fused else "unfused"] = dict(
+            step_ms=step_s * 1e3, peel_ms=peel_s * 1e3, peel_share=peel_s / step_s,
+            device_ops_per_step=len(kernels) / reps,
+            device_busy_share=busy_us / wall_us if kernels else None)
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from repro_torch.fpga import device, netlist
+    from repro_torch.kernels import _build, bbox, domination, fused_eval, wirelength
+
+    # phase 1: build
+    t0 = time.perf_counter()
+    logs = _build.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs) or 'nothing (cached)'}")
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"  {name}: {line.strip()}")
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # phase 2: every kernel against its plain version on the card
+    errs, n_cases = check_kernels(np.random.default_rng(SEED))
+    print(f"kernels vs plain on the card: {n_cases} cases passed, "
+          f"max abs err (f32) {errs}")
+
+    # phase 3: the main path, unfused then fused
+    problem = netlist.make_problem(device.get_device(FPGA_DEVICE))
+    print(f"{FPGA_DEVICE}: {problem.n_units} units, G={problem.n_blocks}, "
+          f"N={problem.n_nets}; NSGA-II pop {POP}, {GENS} generations")
+    counters = (fused_eval.KERNEL, wirelength.KERNEL, bbox.KERNEL,
+                domination.KERNEL, domination.KERNEL_COUNTS)
+    expect = {False: (wirelength.KERNEL, bbox.KERNEL, domination.KERNEL),
+              True: (fused_eval.KERNEL, domination.KERNEL_COUNTS)}
+    launches = {"fused_eval": 0, "wirelength2": 0, "maxbbox": 0, "domination": 0}
+    runs = {}
+    for fused in (False, True):
+        r = run_main_path(problem, fused, counters)
+        counts = {f"{k.name}{'+counts' if k is domination.KERNEL_COUNTS else ''}": v
+                  for k, v in r["launches"].items()}
+        missing = [k.name for k in expect[fused] if r["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"fused={fused}: kernels never launched: {missing}")
+        launches["fused_eval"] += r["launches"][fused_eval.KERNEL]
+        launches["wirelength2"] += r["launches"][wirelength.KERNEL]
+        launches["maxbbox"] += r["launches"][bbox.KERNEL]
+        launches["domination"] += (r["launches"][domination.KERNEL]
+                                   + r["launches"][domination.KERNEL_COUNTS])
+        runs[fused] = r
+        print(f"main path fused={fused}: {r['seconds']:.3f} s, "
+              f"{r['gens_per_s']:.2f} gens/s, {r['evals_per_s']:.1f} evals/s; "
+              f"best combined {r['init_best']:.4e} -> {r['final_best']:.4e}; "
+              f"launches {counts}")
+
+    # the quickstart entry point: its evaluation and its final Pareto sort
+    # both run on the card (unfused: 1 + 5 evaluations, 2 x 5 + 1 sorts)
+    qs, text = run_quickstart(counters)
+    qs_expect = {wirelength.KERNEL: 6, bbox.KERNEL: 6, domination.KERNEL: 11,
+                 fused_eval.KERNEL: 0, domination.KERNEL_COUNTS: 0}
+    if qs != qs_expect:
+        raise AssertionError(f"quickstart launches {qs}, expected {qs_expect}")
+    print(f"quickstart on the card: {text.strip().splitlines()[-1]}; launches "
+          f"{ {k.name + ('+counts' if k is domination.KERNEL_COUNTS else ''): v for k, v in qs.items()} }")
+
+    # phase 4: times, bounds, rank peeling
+    rows = kernel_figures(problem, runs[True]["coords"], runs[True]["objs"], errs, launches)
+    for fused, v in generation_profile(problem).items():
+        print(f"generation ({fused}): step {v['step_ms']:.3f} ms, two rank peels "
+              f"{v['peel_ms']:.3f} ms ({100 * v['peel_share']:.1f}% of the step); "
+              f"{v['device_ops_per_step']:.0f} device ops per step, device busy "
+              f"{v['device_busy_share']}")
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

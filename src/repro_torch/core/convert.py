@@ -1,0 +1,47 @@
+"""Carry genotypes and NSGA-II states between the reference and the port.
+
+The reference's state is `{"pop": {"dist"|"loc"|"perm": (URAM, DSP, BRAM)},
+"objs"}` (a reduced population is a tuple of three permutations), each
+leaf with a leading population axis.  The port's layout is the same, as
+torch tensors, with int64 permutations; the numpy side uses the
+reference's dtypes (float32, int32 permutations).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.genotype import tree_map
+
+
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    return a.astype(np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32)
+
+
+def genotype_from_numpy(g, device="cpu"):
+    """Full genotype dict or reduced permutation tuple -> port tensors."""
+    return tree_map(lambda a: _leaf_to_torch(a, device), g)
+
+
+def genotype_to_numpy(g):
+    """Port genotype (full or reduced) -> numpy in the reference's dtypes."""
+    return tree_map(_leaf_to_numpy, g)
+
+
+def state_from_numpy(state: Dict, device="cpu") -> Dict:
+    return {"pop": genotype_from_numpy(state["pop"], device),
+            "objs": _leaf_to_torch(state["objs"], device)}
+
+
+def state_to_numpy(state: Dict) -> Dict:
+    return {"pop": genotype_to_numpy(state["pop"]),
+            "objs": _leaf_to_numpy(state["objs"])}
