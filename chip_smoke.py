@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-1. Builds the four CUDA kernels from `src/repro_torch/csrc/` for sm_90a.
+1. Builds the five CUDA kernels from `src/repro_torch/csrc/` for sm_90a.
 2. Holds each kernel against its plain PyTorch version on the card over
-   the sweep shapes and the main path's shapes, in f32 and bf16.
-3. Runs the main path, NSGA-II on xcvu11p (80 conv units, pop 64, 200
+   the sweep shapes and the main paths' shapes, in f32 and bf16 (flash
+   attention over the reference's test grid, the serving path's prefill
+   shapes and gemma3's D = 256 under a window).
+3. Runs the placement path, NSGA-II on xcvu11p (80 conv units, pop 64, 200
    generations), through `repro_torch.core.evolve.run`, once unfused and
    once fused, with every launch counter set to 0 just before each run and
    read just after; checks the champion's legality, the improvement over
@@ -14,10 +16,19 @@
    versions on the CPU.  Then runs the quickstart entry point on the card
    for a few generations and checks the launches of its evaluation and
    its final Pareto sort.
+   Then serves yi-6b at full width (fp32, weights from seed 0) through
+   `repro_torch.serve.engine.Engine`: 8 requests of 77-2048 prompt tokens
+   and 32 new tokens each over 4 slots, with the launch counters set to 0
+   just before and read just after; every prefill attention layer must
+   launch the flash-attention kernel, and the last-token prefill logits
+   through the kernel must match those through the plain attention.  A
+   torch.profiler trace of a pool decode step and of the longest prefill
+   gives their device busy share and top kernels.
 4. Times each kernel and its plain version with CUDA events at the path's
    shapes and at 2048 rows (and each kernel's device time from a
-   torch.profiler trace), and a generation against its rank peeling and
-   its device busy share.
+   torch.profiler trace), flash attention at the serving path's longest
+   prefill against `scaled_dot_product_attention` as a yardstick, and a
+   generation against its rank peeling and its device busy share.
 
 Prints the card's name and power limit, one JSON line of kernel figures,
 and as its last line `{"ok": true, "device": {...}}`.  Exits non-zero,
@@ -25,6 +36,7 @@ without that line, when no CUDA device is present or any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -42,14 +54,38 @@ SWEEP_ROWS = (1, 7, 64, 127, 128, 129, 200, 2048)
 EVAL_SHAPES = ((37, 11, 5, 7), (96, 511, 3, 28), (96, 512, 3, 28),
                (96, 513, 3, 28), (640, 40, 127, 5), (640, 40, 128, 5),
                (640, 40, 129, 5), (3640, 999, 130, 28), (2240, 1999, 80, 28))
+# flash attention: (b, h, hkv, s, t, d, window, input scale) -- the
+# reference's test grid (inputs x 0.02 as there), the serving path's
+# prefill shapes, gemma3's D = 256 under its window, and S > T
+FLASH_CASES = ([(b, h, hkv, s, s, d, None, 0.02) for b, h, hkv, s, d in (
+                   (1, 2, 2, 128, 64), (2, 4, 2, 200, 64), (1, 8, 1, 384, 128),
+                   (1, 2, 2, 96, 64))]
+               + [(1, 2, 2, 256, 256, 64, w, 0.02) for w in (32, 128)]
+               + [(2, 4, 2, 64, 320, 64, None, 0.02)]
+               + [(1, 32, 4, s, s, 128, None, 1.0) for s in (77, 128, 257, 1024, 2048)]
+               + [(1, 16, 8, 1500, 1500, 256, 1024, 1.0), (1, 4, 2, 100, 60, 128, None, 1.0)])
+SERVE_ARCH = "yi-6b"
+SERVE_PROMPTS = (2048, 1531, 1024, 700, 512, 257, 128, 77)
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 2080, 32
+# kernel vs plain attention through the whole model: the per-layer fp32
+# differences (~1e-6 of the attention output) pass through 32 layers
+LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 
 
-def tol(dtype):
+def tol(dtype, kernel: str = ""):
+    """The placement kernels: rtol 1e-5 / atol 1e-6.  Flash attention in f32:
+    the reference's own flash tests' rtol 2e-5 / atol 1e-5, because with
+    unit-scale q and k the fp32 logits of a 128-term dot product differ by
+    ~1e-6 between two summation orders, and exp passes that on to every
+    weight of the sum over T."""
     import torch
     if dtype == torch.bfloat16:
         return dict(rtol=2e-2, atol=2e-2)
+    if kernel == "flash_attention":
+        return dict(rtol=2e-5, atol=1e-5)
     return dict(rtol=1e-5, atol=1e-6)
 
 
@@ -67,10 +103,11 @@ def check_kernels(rng):
     abs error of each kernel over the f32 cases."""
     import torch
 
-    from repro_torch.kernels import bbox, domination, fused_eval, ref, wirelength
+    from repro_torch.kernels import bbox, domination, flash_attention, fused_eval, ref, wirelength
 
     dev = torch.device("cuda")
-    errs = {"fused_eval": 0.0, "wirelength2": 0.0, "maxbbox": 0.0, "domination": 0.0}
+    errs = {"fused_eval": 0.0, "wirelength2": 0.0, "maxbbox": 0.0, "domination": 0.0,
+            "flash_attention": 0.0}
     n_cases = dict.fromkeys(errs, 0)
 
     def coords(*shape):
@@ -82,7 +119,7 @@ def check_kernels(rng):
     def close(name, got, want, dtype):
         torch.cuda.synchronize()
         got, want = got.float(), want.float()
-        torch.testing.assert_close(got, want, **tol(dtype), msg=lambda m: f"{name}: {m}")
+        torch.testing.assert_close(got, want, **tol(dtype, name), msg=lambda m: f"{name}: {m}")
         if dtype == torch.float32:
             errs[name] = max(errs[name], float((got - want).abs().max()))
         n_cases[name] += 1
@@ -126,6 +163,17 @@ def check_kernels(rng):
                 if not torch.equal(cnt, want_cnt):
                     raise AssertionError(f"domination counts differ at P={p}, M={m}, {dtype}")
                 n_cases["domination"] += 1
+        for b, h, hkv, s, t, d, window, scale in FLASH_CASES:
+            q = (coords(b, h, s, d) * (scale / 50)).to(dtype)
+            k, v = ((coords(b, hkv, t, d) * (scale / 50)).to(dtype) for _ in range(2))
+            got = flash_attention.flash_attention(q, k, v, True, window)
+            want = ref.flash_attention_ref(q, k, v, True, window)
+            if s > t:   # rows with no visible key: 0 from the kernel, NaN plain
+                torch.cuda.synchronize()
+                if not (got[:, :, : s - t] == 0).all():
+                    raise AssertionError("flash_attention: a row with no key is not 0")
+                got, want = got[:, :, s - t:], want[:, :, s - t:]
+            close("flash_attention", got, want, dtype)
 
     # bounds: kernels read nothing past the real N, U and P -- the tails of
     # the buffers they are sliced from hold indices far out of range and
@@ -385,6 +433,188 @@ def generation_profile(problem):
     return out
 
 
+# ------------------------------------------------------------ phase 3b
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the model's full-sequence attention through the plain version
+    (for the kernel-vs-plain check of the logits, outside counted runs)."""
+    from repro_torch.kernels import ops, ref
+    kernel_path = ops.flash_attention
+    ops.flash_attention = (lambda q, k, v, causal=True, window=None, cap=None:
+                           ref.flash_attention_ref(q, k, v, causal, window, cap))
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel_path
+
+
+def run_serving(counters):
+    """Serve SERVE_PROMPTS through the Engine at full width; returns the
+    launches, figures and the model (for the logits check)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_arch(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", dtype=torch.float32,
+                        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    eng = Engine(model, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, eos_id=-1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in SERVE_PROMPTS]
+
+    # Engine.generate's loop, with each prefill and each step timed (both
+    # end in a host read of the sampled tokens, so the clock is synchronised)
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        k.launches = 0
+    queue, rid_of, results = list(range(len(prompts))), {}, {}
+    prefill_s, ttft_s, decode_s, decode_tokens = {}, {}, 0.0, 0
+    start = time.perf_counter()
+    while queue or eng.active.any():
+        while queue:
+            t0 = time.perf_counter()
+            rid = eng.submit(prompts[queue[0]], SERVE_MAX_NEW)
+            if rid is None:
+                break
+            t1 = time.perf_counter()
+            i = queue.pop(0)
+            rid_of[rid], prefill_s[i], ttft_s[i] = i, t1 - t0, t1 - start
+        n_active = int(eng.active.sum())
+        t0 = time.perf_counter()
+        done = eng.step()
+        decode_s += time.perf_counter() - t0
+        decode_tokens += n_active
+        for req in done:
+            results[rid_of[req.rid]] = req.out
+    wall_s = time.perf_counter() - start
+    launches = {k: k.launches for k in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    if sorted(results) != list(range(len(prompts))):
+        raise AssertionError(f"served {sorted(results)} of {len(prompts)} requests")
+    for i, out in results.items():
+        if len(out) != SERVE_MAX_NEW or not all(0 <= t < cfg.vocab for t in out):
+            raise AssertionError(f"request {i}: {len(out)} tokens, expected "
+                                 f"{SERVE_MAX_NEW} in [0, {cfg.vocab})")
+    return dict(cfg=cfg, model=model, prompts=prompts, results=results,
+                launches=launches, init_s=init_s, wall_s=wall_s, peak_bytes=peak,
+                prefill_s=prefill_s, ttft_s=ttft_s, decode_s=decode_s,
+                decode_tokens=decode_tokens)
+
+
+def check_serving_logits(served):
+    """The last-token prefill logits of the longest and the shortest prompt
+    through the kernel and through the plain attention, on the card."""
+    import torch
+    model, prompts, results = served["model"], served["prompts"], served["results"]
+    out = {}
+    for i in (SERVE_PROMPTS.index(max(SERVE_PROMPTS)), SERVE_PROMPTS.index(min(SERVE_PROMPTS))):
+        toks = torch.as_tensor(prompts[i], dtype=torch.long, device="cuda")[None]
+        kern = model.prefill(toks, toks.shape[1])[0][0]
+        with plain_attention():
+            plain = model.prefill(toks, toks.shape[1])[0][0]
+        torch.cuda.synchronize()
+        if not torch.isfinite(kern).all():
+            raise AssertionError(f"prompt {i}: non-finite logits")
+        torch.testing.assert_close(kern, plain, **LOGITS_TOL,
+                                   msg=lambda m: f"prompt of {toks.shape[1]} tokens: {m}")
+        if int(kern.argmax()) != int(plain.argmax()) or int(kern.argmax()) != results[i][0]:
+            raise AssertionError(f"prompt {i}: argmax kernel {int(kern.argmax())}, plain "
+                                 f"{int(plain.argmax())}, served {results[i][0]}")
+        out[toks.shape[1]] = dict(max_abs_diff=float((kern - plain).abs().max()),
+                                  max_abs_logit=float(plain.abs().max()),
+                                  argmax=int(kern.argmax()))
+    return out
+
+
+def serving_profile(served, reps: int = 3):
+    """Where a serving step's time goes: a pool decode step (all slots
+    active) and the longest prefill, each under torch.profiler -- host-clock
+    ms per call, the device's busy share, and the top kernels by device
+    time (ms per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Engine
+
+    model, prompts = served["model"], served["prompts"]
+    longest = prompts[SERVE_PROMPTS.index(max(SERVE_PROMPTS))]
+    eng = Engine(model, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, eos_id=-1)
+    for i in range(SERVE_SLOTS):
+        eng.submit(prompts[i], max_new=reps + 2)
+    toks = torch.as_tensor(longest, dtype=torch.long, device="cuda")[None]
+    out = {}
+    for name, fn in (("decode_step", eng.step),
+                     ("prefill_%d" % len(longest), lambda: model.prefill(toks, SERVE_MAX_LEN))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        top = sorted(((e.device_time_total, e.key) for e in prof.key_averages()
+                      if e.device_time_total > 0), reverse=True)[:5]
+        out[name] = dict(ms=wall_us / reps / 1e3, device_ops=len(kernels) / reps,
+                         device_busy_share=busy_us / wall_us if kernels else None,
+                         top_kernels_ms={k[:70]: us / reps / 1e3 for us, k in top})
+    return out
+
+
+def flash_figures(errs, launches):
+    """Kernel, plain version and SDPA at the serving path's longest prefill."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention, ref
+
+    cfg = get_arch(SERVE_ARCH)
+    cfg_h, cfg_hkv, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, max(SERVE_PROMPTS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:104 "
+                       "(flash_attention_pallas, body :32)",
+           "launches": launches, "max_abs_err": errs["flash_attention"],
+           "shape": f"q [1, {cfg_h}, {s}, {d}], k/v [1, {cfg_hkv}, {s}, {d}], causal"}
+    pairs = s * (s + 1) // 2                      # visible (query, key) pairs
+    n_ops = 4 * cfg_h * d * pairs
+    for dtype, tag, peak in ((torch.float32, "", FP32_OPS_PER_S),
+                             (torch.bfloat16, "_bf16", BF16_OPS_PER_S)):
+        q = torch.randn(1, cfg_h, s, d, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(1, cfg_hkv, s, d, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+
+        def kern():
+            return flash_attention.flash_attention(q, k, v, True, None)
+
+        n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
+        row.update({
+            f"ms{tag}": time_ms(kern, iters=20),
+            f"plain_ms{tag}": time_ms(lambda: ref.flash_attention_ref(q, k, v, True, None),
+                                      iters=5),
+            f"bound_ms{tag}": max(t_bytes, t_ops) * 1e3,
+            f"bound_by{tag}": "bytes" if t_bytes >= t_ops else "operations",
+            f"library_ms{tag}": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), iters=20),
+            f"device_ms{tag}": device_ms(kern, "flash_attention_kernel", iters=10),
+        })
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -394,7 +624,10 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.fpga import device, netlist
-    from repro_torch.kernels import _build, bbox, domination, fused_eval, wirelength
+    from repro_torch.kernels import (_build, bbox, domination, flash_attention, fused_eval,
+                                     wirelength)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     # phase 1: build
     t0 = time.perf_counter()
@@ -404,8 +637,12 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  {name}: {line.strip()}")
+    if sorted(_build.NAMES) != sorted(p.name.split("-")[0] for p in
+                                      map(_build.library_path, _build.NAMES) if p.exists()):
+        raise AssertionError(f"not every library of {_build.NAMES} was built")
     card = card_line()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
 
     # phase 2: every kernel against its plain version on the card
     errs, n_cases = check_kernels(np.random.default_rng(SEED))
@@ -417,7 +654,7 @@ def main() -> int:
     print(f"{FPGA_DEVICE}: {problem.n_units} units, G={problem.n_blocks}, "
           f"N={problem.n_nets}; NSGA-II pop {POP}, {GENS} generations")
     counters = (fused_eval.KERNEL, wirelength.KERNEL, bbox.KERNEL,
-                domination.KERNEL, domination.KERNEL_COUNTS)
+                domination.KERNEL, domination.KERNEL_COUNTS, flash_attention.KERNEL)
     expect = {False: (wirelength.KERNEL, bbox.KERNEL, domination.KERNEL),
               True: (fused_eval.KERNEL, domination.KERNEL_COUNTS)}
     launches = {"fused_eval": 0, "wirelength2": 0, "maxbbox": 0, "domination": 0}
@@ -444,14 +681,52 @@ def main() -> int:
     # both run on the card (unfused: 1 + 5 evaluations, 2 x 5 + 1 sorts)
     qs, text = run_quickstart(counters)
     qs_expect = {wirelength.KERNEL: 6, bbox.KERNEL: 6, domination.KERNEL: 11,
-                 fused_eval.KERNEL: 0, domination.KERNEL_COUNTS: 0}
+                 fused_eval.KERNEL: 0, domination.KERNEL_COUNTS: 0, flash_attention.KERNEL: 0}
     if qs != qs_expect:
         raise AssertionError(f"quickstart launches {qs}, expected {qs_expect}")
     print(f"quickstart on the card: {text.strip().splitlines()[-1]}; launches "
           f"{ {k.name + ('+counts' if k is domination.KERNEL_COUNTS else ''): v for k, v in qs.items()} }")
 
+    # the serving path at full width: every prefill attention layer runs
+    # the flash kernel (n_layers per request) and nothing else launches
+    served = run_serving(counters)
+    cfg = served["cfg"]
+    want = {k: 0 for k in counters}
+    want[flash_attention.KERNEL] = cfg.n_layers * len(SERVE_PROMPTS)
+    if served["launches"] != want:
+        got = {k.name: v for k, v in served["launches"].items()}
+        raise AssertionError(f"serving launches {got}, expected flash_attention "
+                             f"{want[flash_attention.KERNEL]} only")
+    n_prompt = sum(SERVE_PROMPTS)
+    print(f"serving {SERVE_ARCH} (full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{cfg.param_count()} params fp32, built in {served['init_s']:.3f} s): "
+          f"{len(SERVE_PROMPTS)} requests over {SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN}, "
+          f"max_new {SERVE_MAX_NEW}; wall {served['wall_s']:.3f} s")
+    print(f"  prefill: {n_prompt} tokens in {sum(served['prefill_s'].values()):.4f} s, "
+          f"{n_prompt / sum(served['prefill_s'].values()):.1f} tokens/s")
+    for i, n in enumerate(SERVE_PROMPTS):
+        print(f"  request {i} ({n} prompt tokens): prefill "
+              f"{served['prefill_s'][i] * 1e3:.2f} ms, time to first token from the "
+              f"start {served['ttft_s'][i] * 1e3:.2f} ms")
+    print(f"  decode: {served['decode_tokens']} tokens in {served['decode_s']:.4f} s over "
+          f"the pool, {served['decode_tokens'] / served['decode_s']:.1f} tokens/s")
+    print(f"  flash_attention launches {served['launches'][flash_attention.KERNEL]} "
+          f"(= {cfg.n_layers} x {len(SERVE_PROMPTS)}); "
+          f"torch.cuda.max_memory_allocated {served['peak_bytes']} bytes")
+    logit_check = check_serving_logits(served)
+    print(f"  last-token prefill logits, kernel vs plain attention (tol {LOGITS_TOL}): "
+          f"{logit_check}")
+    for name, v in serving_profile(served).items():
+        print(f"  profile {name}: {v['ms']:.3f} ms per call, {v['device_ops']:.0f} device ops, "
+              f"device busy {v['device_busy_share']}; top kernels (ms per call) "
+              f"{v['top_kernels_ms']}")
+    del served
+    torch.cuda.empty_cache()
+
     # phase 4: times, bounds, rank peeling
     rows = kernel_figures(problem, runs[True]["coords"], runs[True]["objs"], errs, launches)
+    rows.append(flash_figures(errs, want[flash_attention.KERNEL]))
     for fused, v in generation_profile(problem).items():
         print(f"generation ({fused}): step {v['step_ms']:.3f} ms, two rank peels "
               f"{v['peel_ms']:.3f} ms ({100 * v['peel_share']:.1f}% of the step); "

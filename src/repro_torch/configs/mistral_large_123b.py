@@ -1,0 +1,9 @@
+"""mistral-large-123b [hf:mistralai/Mistral-Large-Instruct-2407]:
+the deep/wide dense stress case (88 layers, d_model 12288)."""
+from repro_torch.models.transformer import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mistral-large-123b", family="dense",
+    n_layers=88, d_model=12288, n_heads=96, n_kv_heads=8, d_head=128,
+    d_ff=28672, vocab=32768,
+)

@@ -1,14 +1,21 @@
-"""Carry genotypes and NSGA-II states between the reference and the port.
+"""Carry genotypes, NSGA-II states and LM weights between the reference and
+the port.
 
 The reference's state is `{"pop": {"dist"|"loc"|"perm": (URAM, DSP, BRAM)},
 "objs"}` (a reduced population is a tuple of three permutations), each
 leaf with a leading population axis.  The port's layout is the same, as
 torch tensors, with int64 permutations; the numpy side uses the
 reference's dtypes (float32, int32 permutations).
+
+The reference's LM parameters are a tree `{"embed", "ln_f", "head",
+"blocks": [per pattern position {"ln1", "attn": {wq, wk, wv, wo}, "ln2",
+"mlp": {wg, wu, wd}}]}` whose block leaves are stacked over periods; the
+port's `Transformer` holds one block per layer, layer `l` being position
+`l % period` of period `l // period`.  Both keep dense weights [d_in, d_out].
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -45,3 +52,22 @@ def state_from_numpy(state: Dict, device="cpu") -> Dict:
 def state_to_numpy(state: Dict) -> Dict:
     return {"pop": genotype_to_numpy(state["pop"]),
             "objs": _leaf_to_numpy(state["objs"])}
+
+
+def lm_params_from_numpy(cfg, params: Dict[str, Any], device="cpu",
+                         dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """The reference's `init_params` tree, as numpy, -> the state dict of the
+    port's `Transformer(cfg)`."""
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device).to(dtype)
+
+    state = {name: t(params[name]) for name in ("embed", "ln_f", "head")}
+    for layer in range(cfg.n_layers):
+        block = params["blocks"][layer % cfg.period]
+        period = layer // cfg.period
+        for name in ("ln1", "ln2"):
+            state[f"blocks.{layer}.{name}"] = t(block[name][period])
+        for sub in ("attn", "mlp"):
+            for name, a in block[sub].items():
+                state[f"blocks.{layer}.{sub}.{name}"] = t(a[period])
+    return state

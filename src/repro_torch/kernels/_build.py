@@ -25,7 +25,7 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NAMES = ("bbox", "domination", "fused_eval", "wirelength")
+NAMES = ("bbox", "domination", "flash_attention", "fused_eval", "wirelength")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 DTYPE_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}

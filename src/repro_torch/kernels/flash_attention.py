@@ -1,0 +1,55 @@
+"""CUDA kernel: causal flash attention (FA-2 online softmax), GQA-aware.
+
+Replaces `repro/kernels/flash_attention.py::flash_attention_pallas`.  Source
+`csrc/flash_attention.cu`; plain version `ref.flash_attention_ref`.  The
+queries are the last S of T positions (bottom-right causal alignment), an
+optional sliding window keeps keys with `k_pos > q_pos - window`, and the
+kv head of query head h is `h // (H // Hkv)`, read in place.  A query row
+with no visible key (only possible for S > T) outputs 0, where the plain
+version gives NaN.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels._build import Kernel, check_inputs
+
+HEAD_DIMS = (64, 128, 256)
+MAX_GRID_YZ = 65535
+KERNEL = Kernel("flash_attention", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                + [ctypes.c_float])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None
+                    ) -> torch.Tensor:
+    """q [B, H, S, D]; k, v [B, Hkv, T, D] -> [B, H, S, D] in q's dtype.
+    CUDA tensors only; D in HEAD_DIMS, window None or >= 1."""
+    check_inputs("flash_attention", floats=(q, k, v))
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q must be [B, H, S, D] and k, v "
+                         f"[B, Hkv, T, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or h % hkv:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
+                         f"q {tuple(q.shape)} (same B and D, H a multiple of Hkv)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: B = {b}, H = {h} exceed the grid")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if out.numel():
+        KERNEL.launch(q.dtype, q.device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), out.data_ptr(), b, h, hkv, s, t, d,
+                      int(causal), window or 0, 1.0 / math.sqrt(d))
+    return out

@@ -1,18 +1,24 @@
 """Dispatch on the tensor's device: CPU -> plain version, CUDA -> kernel.
 
-Port of `repro/kernels/ops.py` (the placement entries).  There is no
-environment switch and no fallback: a CUDA tensor always goes to its
-hand-written kernel, whose wrapper raises on a shape or dtype it does not
-take, and only a CPU tensor runs the plain version in `ref.py`.
+Port of `repro/kernels/ops.py`.  There is no environment switch and no
+fallback: a CUDA tensor always goes to its hand-written kernel, whose
+wrapper raises on a shape or dtype it does not take, and only a CPU tensor
+runs the plain version in `ref.py`.
+
+`flash_attention` carries an autograd Function whose backward recomputes
+through the plain version, as the reference's custom VJP does; there is no
+backward kernel.  `decode_attention` has no kernel on either device: in the
+reference it is XLA code, not a Pallas kernel.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import bbox as _bbox
 from repro_torch.kernels import domination as _dom
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_eval as _fe
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import wirelength as _wl
@@ -62,3 +68,43 @@ def fused_eval(bx, by, src, dst, w, uidx) -> torch.Tensor:
     if _on_cpu(bx):
         return _ref.fused_eval_ref(bx, by, src, dst, w, uidx)
     return _fe.fused_eval(bx.contiguous(), by.contiguous(), src, dst, w, uidx)
+
+
+# ------------------------------------------------------------- attention
+
+def _flash_forward(q, k, v, causal, window, logit_soft_cap):
+    if _on_cpu(q):
+        return _ref.flash_attention_ref(q, k, v, causal, window, logit_soft_cap)
+    if logit_soft_cap is not None:
+        raise NotImplementedError(
+            "flash_attention: logit_soft_cap has no CUDA kernel (the TPU "
+            "kernel has none either and no config sets one)")
+    return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_soft_cap):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, logit_soft_cap)
+        return _flash_forward(q, k, v, causal, window, logit_soft_cap)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = _ref.flash_attention_ref(q, k, v, *ctx.args)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+                    logit_soft_cap: Optional[float] = None) -> torch.Tensor:
+    """q [B, H, S, D]; k, v [B, Hkv, T, D] -> [B, H, S, D] in q's dtype."""
+    return _FlashAttention.apply(q, k, v, causal, window, logit_soft_cap)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+    """Single-token decode, q [B, H, D] against caches [B, Hkv, T, D]."""
+    return _ref.decode_attention_ref(q, k_cache, v_cache, cache_len)

@@ -1,0 +1,32 @@
+"""Dense SwiGLU MLP (the llama-family FFN of every dense arch).
+
+Port of `repro/models/mlp.py`; weights in the reference's [d_in, d_out]
+layout.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models import modules as M
+
+
+def specs(d_model: int, d_ff: int) -> Dict[str, M.ParamSpec]:
+    return {
+        "wg": M.dense_spec(d_model, d_ff),
+        "wu": M.dense_spec(d_model, d_ff),
+        "wd": M.dense_spec(d_ff, d_model),
+    }
+
+
+class MLP(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, *, device,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        for name, spec in specs(d_model, d_ff).items():
+            setattr(self, name, M.param(spec, generator, device, dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return M.swiglu(x, self.wg, self.wu, self.wd)
