@@ -7,7 +7,8 @@
 2. Holds each kernel against its plain PyTorch version on the card over
    the sweep shapes and the main paths' shapes, in f32 and bf16 (flash
    attention over the reference's test grid, the serving path's prefill
-   shapes and gemma3's D = 256 under a window).
+   shapes, gemma3's D = 256 under a window and the tile edges of its
+   tensor-core routes; domination bitwise, at the edges of its tiles too).
 3. Runs the placement path, NSGA-II on xcvu11p (80 conv units, pop 64, 200
    generations), through `repro_torch.core.evolve.run`, once unfused and
    once fused, with every launch counter set to 0 just before each run and
@@ -25,10 +26,13 @@
    torch.profiler trace of a pool decode step and of the longest prefill
    gives their device busy share and top kernels.
 4. Times each kernel and its plain version with CUDA events at the path's
-   shapes and at 2048 rows (and each kernel's device time from a
-   torch.profiler trace), flash attention at the serving path's longest
-   prefill against `scaled_dot_product_attention` as a yardstick, and a
-   generation against its rank peeling and its device busy share.
+   shapes and at 2048 rows (and each call's device time from a
+   torch.profiler trace: the kernel and any memset or copy the call
+   issues), domination against its plain version over
+   SWEEP_ROWS, flash attention at the serving path's longest prefill
+   against `scaled_dot_product_attention` as a yardstick (f32 beside its
+   FMA and 3xTF32 bounds), and a generation against its rank peeling and
+   its device busy share.
 
 Prints the card's name and power limit, one JSON line of kernel figures,
 and as its last line `{"ok": true, "device": {...}}`.  Exits non-zero,
@@ -56,14 +60,24 @@ EVAL_SHAPES = ((37, 11, 5, 7), (96, 511, 3, 28), (96, 512, 3, 28),
                (640, 40, 129, 5), (3640, 999, 130, 28), (2240, 1999, 80, 28))
 # flash attention: (b, h, hkv, s, t, d, window, input scale) -- the
 # reference's test grid (inputs x 0.02 as there), the serving path's
-# prefill shapes, gemma3's D = 256 under its window, and S > T
+# prefill shapes, gemma3's D = 256 under its window, and S > T; then the
+# tile edges of the tensor-core routes (64-row q tiles in bf16, 128 in f32,
+# 64-key kv tiles): S and T both ragged with S < T (TMA zero fill at both
+# tails), B = 2 with one kv head, and D = 64 and 256 under a window
 FLASH_CASES = ([(b, h, hkv, s, s, d, None, 0.02) for b, h, hkv, s, d in (
                    (1, 2, 2, 128, 64), (2, 4, 2, 200, 64), (1, 8, 1, 384, 128),
                    (1, 2, 2, 96, 64))]
                + [(1, 2, 2, 256, 256, 64, w, 0.02) for w in (32, 128)]
                + [(2, 4, 2, 64, 320, 64, None, 0.02)]
                + [(1, 32, 4, s, s, 128, None, 1.0) for s in (77, 128, 257, 1024, 2048)]
-               + [(1, 16, 8, 1500, 1500, 256, 1024, 1.0), (1, 4, 2, 100, 60, 128, None, 1.0)])
+               + [(1, 16, 8, 1500, 1500, 256, 1024, 1.0), (1, 4, 2, 100, 60, 128, None, 1.0)]
+               + [(1, 4, 2, 190, 333, 128, None, 1.0), (1, 4, 2, 129, 1000, 64, None, 1.0),
+                  (2, 8, 1, 257, 257, 128, None, 1.0),
+                  (1, 4, 2, 300, 300, 64, 100, 1.0), (1, 4, 2, 300, 300, 256, 100, 1.0)])
+# domination: the reference's sweep, the tile edges (P % 16 != 0 gives byte
+# stores; 256 x 16 tiles up to 256 rows, 64 x 64 tiles and a memset above)
+# and a size past the island batch
+DOM_SIZES = (1, 3, 7, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 2048, 4096)
 SERVE_ARCH = "yi-6b"
 SERVE_PROMPTS = (2048, 1531, 1024, 700, 512, 257, 128, 77)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 2080, 32
@@ -72,6 +86,7 @@ SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 2080, 32
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 
 
@@ -143,7 +158,7 @@ def check_kernels(rng):
             for p in SWEEP_ROWS:
                 ux, uy = coords(p, u, b).to(dtype), coords(p, u, b).to(dtype)
                 close("maxbbox", bbox.maxbbox(ux, uy), ref.maxbbox_ref(ux, uy), dtype)
-        for p in (1, 3, 7, 64, 127, 128, 129, 200, 2048):
+        for p in DOM_SIZES:
             for m in (2, 3):
                 objs = torch.tensor(rng.uniform(size=(p, m)), dtype=torch.float32)
                 if p >= 2:
@@ -281,11 +296,13 @@ def time_ms(fn, iters=200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, symbol: str, iters: int = 50, traces: int = 3):
-    """Mean device time (ms) of one launch of the kernels whose names hold
-    `symbol`, from a torch.profiler trace.  A trace now and then comes back
-    without the kernel's events; up to `traces` are taken, and None means
-    none of them showed it."""
+def device_profile(fn, symbol: str, iters: int = 50, traces: int = 3):
+    """(device ms, device ops) of one call of `fn`, from a torch.profiler
+    trace: the kernels whose names hold `symbol` and every memset or copy
+    the call issues besides (domination's launcher zeroes its counts with
+    a memset above 256 rows), divided by the launches of `symbol`.  A trace
+    now and then comes back without the kernel's events; up to `traces`
+    are taken, and (None, None) means none of them showed it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -295,14 +312,21 @@ def device_ms(fn, symbol: str, iters: int = 50, traces: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us, count = 0.0, 0
+        us, ops, launches = 0.0, 0, 0
         for e in prof.key_averages():
-            if symbol in e.key:
+            if symbol in e.key or e.key.startswith(("Memset", "Memcpy")):
                 us += e.device_time_total
-                count += e.count
-        if count and us:
-            return us / count / 1e3
-    return None
+                ops += e.count
+            if symbol in e.key:
+                launches += e.count
+        if launches and us:
+            return us / launches / 1e3, ops / launches
+    return None, None
+
+
+def device_ms(fn, symbol: str, iters: int = 50, traces: int = 3):
+    """Device ms of one call of `fn`, as `device_profile` counts it."""
+    return device_profile(fn, symbol, iters, traces)[0]
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -371,6 +395,8 @@ def kernel_figures(problem, coords, objs, errs, launches):
         k2, p2, nbytes2, nops2 = at_2048[name]
         bms, by_what = bound_ms(nbytes, nops)
         bms2, by2 = bound_ms(nbytes2, nops2)
+        dev, ops = device_profile(kern, symbols[name])
+        dev2, ops2 = device_profile(k2, symbols[name])
         rows[name] = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],
@@ -378,9 +404,18 @@ def kernel_figures(problem, coords, objs, errs, launches):
             "bound_ms": bms, "bound_by": by_what, "library_ms": None,
             "shape": shape, "ms_2048": time_ms(k2), "plain_ms_2048": time_ms(p2),
             "bound_ms_2048": bms2, "bound_by_2048": by2,
-            "device_ms": device_ms(kern, symbols[name]),
-            "device_ms_2048": device_ms(k2, symbols[name]),
+            "device_ms": dev, "device_ops": ops,
+            "device_ms_2048": dev2, "device_ops_2048": ops2,
         }
+    # domination against its plain version over the sweep sizes
+    sweep = {}
+    for p in SWEEP_ROWS:
+        o = torch.rand(p, 2, device="cuda")
+        kern, plain = (lambda: domination.domination_counts(o)), (lambda: ref.domination_counts_ref(o))
+        dev, ops = device_profile(kern, symbols["domination"])
+        sweep[p] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), device_ms=dev,
+                        device_ops=ops)
+    rows["domination"]["sweep"] = sweep
     return [rows[k] for k in meta]
 
 
@@ -573,7 +608,12 @@ def serving_profile(served, reps: int = 3):
 
 
 def flash_figures(errs, launches):
-    """Kernel, plain version and SDPA at the serving path's longest prefill."""
+    """Kernel, plain version and SDPA at the serving path's longest prefill.
+
+    bf16 runs on the wgmma route, bounded by 989 TFLOP/s.  f32 runs on the
+    tf32x3 route: three TF32 products per product, so its least time is
+    3 x operations / 495 TFLOP/s, below the CUDA cores' 67 TFLOP/s FMA
+    bound; the row states both and divides by the smaller."""
     import torch
     import torch.nn.functional as F
 
@@ -591,7 +631,10 @@ def flash_figures(errs, launches):
            "shape": f"q [1, {cfg_h}, {s}, {d}], k/v [1, {cfg_hkv}, {s}, {d}], causal"}
     pairs = s * (s + 1) // 2                      # visible (query, key) pairs
     n_ops = 4 * cfg_h * d * pairs
-    for dtype, tag, peak in ((torch.float32, "", FP32_OPS_PER_S),
+    fma_ms, tf32x3_ms = n_ops / FP32_OPS_PER_S * 1e3, 3 * n_ops / TF32_OPS_PER_S * 1e3
+    row.update(bound_ms_fma=fma_ms, bound_ms_tf32x3=tf32x3_ms,
+               bound_divides_by="tf32x3" if tf32x3_ms <= fma_ms else "fma")
+    for dtype, tag, peak in ((torch.float32, "", 1e3 * n_ops / min(fma_ms, tf32x3_ms)),
                              (torch.bfloat16, "_bf16", BF16_OPS_PER_S)):
         q = torch.randn(1, cfg_h, s, d, generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn(1, cfg_hkv, s, d, generator=gen, device="cuda").to(dtype)
@@ -603,6 +646,7 @@ def flash_figures(errs, launches):
         n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
         row.update({
+            f"variant{tag}": flash_attention.route(dtype, d),
             f"ms{tag}": time_ms(kern, iters=20),
             f"plain_ms{tag}": time_ms(lambda: ref.flash_attention_ref(q, k, v, True, None),
                                       iters=5),
@@ -635,7 +679,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs) or 'nothing (cached)'}")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line.lower() for w in ("entry function", "registers", "spill",
+                                               "error", "warn", "performance loss")):
                 print(f"  {name}: {line.strip()}")
     if sorted(_build.NAMES) != sorted(p.name.split("-")[0] for p in
                                       map(_build.library_path, _build.NAMES) if p.exists()):
@@ -727,6 +772,11 @@ def main() -> int:
     # phase 4: times, bounds, rank peeling
     rows = kernel_figures(problem, runs[True]["coords"], runs[True]["objs"], errs, launches)
     rows.append(flash_figures(errs, want[flash_attention.KERNEL]))
+    print("domination vs plain over SWEEP_ROWS (per-call ms, device ms): "
+          + "; ".join(f"P={p}: {v['ms']:.4f} vs {v['plain_ms']:.4f}, device {v['device_ms']} "
+                      f"in {v['device_ops']} ops"
+                      for p, v in next(r for r in rows if r["name"] == "domination")
+                      ["sweep"].items()))
     for fused, v in generation_profile(problem).items():
         print(f"generation ({fused}): step {v['step_ms']:.3f} ms, two rank peels "
               f"{v['peel_ms']:.3f} ms ({100 * v['peel_share']:.1f}% of the step); "

@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -120,17 +120,19 @@ class Kernel:
         self.argtypes = list(argtypes) + [ctypes.c_void_p]    # + stream
         self.launches = 0
 
-    def _entry(self, dtype: torch.dtype):
-        fn = getattr(library(self.name), f"{self.name}_{DTYPE_TAGS[dtype]}")
+    def _entry(self, tag: str):
+        fn = getattr(library(self.name), f"{self.name}_{tag}")
         if fn.argtypes is None:
             fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
         return fn
 
-    def launch(self, dtype: torch.dtype, device: torch.device, *args) -> None:
-        """Call the `dtype` entry point on `device`'s current stream."""
+    def launch(self, dtype: torch.dtype, device: torch.device, *args,
+               entry: Optional[str] = None) -> None:
+        """Call entry point `<name>_<entry>` (default: the `dtype` tag, as
+        in `domination_f32`) on `device`'s current stream."""
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = self._entry(dtype)(*args, stream)
+            err = self._entry(entry or DTYPE_TAGS[dtype])(*args, stream)
         if err != 0:
             msg = getattr(library(self.name), f"{self.name}_error_string")(err)
             raise RuntimeError(f"{self.name} kernel launch failed: "

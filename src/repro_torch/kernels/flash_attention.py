@@ -7,6 +7,12 @@ optional sliding window keeps keys with `k_pos > q_pos - window`, and the
 kv head of query head h is `h // (H // Hkv)`, read in place.  A query row
 with no visible key (only possible for S > T) outputs 0, where the plain
 version gives NaN.
+
+`route` picks the kernel variant from the dtype and head dim: `wgmma`
+(bf16 on the tensor cores, P rounded to bf16 before P V), `tf32x3` (fp32
+as three TF32 tensor-core products per product, hi*hi + hi*lo + lo*hi)
+and `fma` (fp32 at D = 256 on the CUDA cores, where the tf32x3 tiles do
+not fit).  Each variant is its own C entry point, `flash_attention_<route>`.
 """
 from __future__ import annotations
 
@@ -18,10 +24,22 @@ import torch
 
 from repro_torch.kernels._build import Kernel, check_inputs
 
-HEAD_DIMS = (64, 128, 256)
 MAX_GRID_YZ = 65535
+ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
+          (torch.bfloat16, 256): "wgmma", (torch.float32, 64): "tf32x3",
+          (torch.float32, 128): "tf32x3", (torch.float32, 256): "fma"}
+HEAD_DIMS = tuple(sorted({d for _, d in ROUTES}))
 KERNEL = Kernel("flash_attention", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                 + [ctypes.c_float])
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel variant for inputs of `dtype` and head dim `d`; raises on
+    a pair no variant takes."""
+    if (dtype, d) not in ROUTES:
+        raise ValueError(f"flash_attention: no kernel for {dtype} at head dim {d} "
+                         f"(dtypes bfloat16, float32; head dims {HEAD_DIMS})")
+    return ROUTES[(dtype, d)]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -39,8 +57,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or h % hkv:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
                          f"q {tuple(q.shape)} (same B and D, H a multiple of Hkv)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    variant = route(q.dtype, d)
+    if t == 0:
+        raise ValueError("flash_attention: k, v hold no key (T = 0)")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
@@ -51,5 +70,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel():
         KERNEL.launch(q.dtype, q.device, q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), out.data_ptr(), b, h, hkv, s, t, d,
-                      int(causal), window or 0, 1.0 / math.sqrt(d))
+                      int(causal), window or 0, 1.0 / math.sqrt(d), entry=variant)
     return out
