@@ -1,11 +1,13 @@
-"""Carry genotypes, NSGA-II states and LM weights between the reference and
-the port.
+"""Carry genotypes, algorithm states and LM weights between the reference
+and the port.
 
-The reference's state is `{"pop": {"dist"|"loc"|"perm": (URAM, DSP, BRAM)},
-"objs"}` (a reduced population is a tuple of three permutations), each
-leaf with a leading population axis.  The port's layout is the same, as
-torch tensors, with int64 permutations; the numpy side uses the
-reference's dtypes (float32, int32 permutations).
+A population state (NSGA-II, GA) is `{"pop": {"dist"|"loc"|"perm": (URAM,
+DSP, BRAM)}, "objs"}` (a reduced population is a tuple of three
+permutations), each leaf with a leading population axis.  The port's
+layout is the same, as torch tensors, with int64 permutations; the numpy
+side uses the reference's dtypes (float32, int32 permutations).  A point
+state (CMA-ES, SA) is a flat dict of float32 arrays and 0-d scalars with
+int32 counters (`gen`, `k`), kept as such on both sides.
 
 The reference's LM parameters are a tree `{"embed", "ln_f", "head",
 "blocks": [per pattern position {"ln1", "attn": {wq, wk, wv, wo}, "ln2",
@@ -44,12 +46,22 @@ def genotype_to_numpy(g):
     return tree_map(_leaf_to_numpy, g)
 
 
+def _point_leaf_to_torch(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    dtype = torch.int32 if np.issubdtype(a.dtype, np.integer) else torch.float32
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
 def state_from_numpy(state: Dict, device="cpu") -> Dict:
+    if "pop" not in state:
+        return {k: _point_leaf_to_torch(v, device) for k, v in state.items()}
     return {"pop": genotype_from_numpy(state["pop"], device),
             "objs": _leaf_to_torch(state["objs"], device)}
 
 
 def state_to_numpy(state: Dict) -> Dict:
+    if "pop" not in state:
+        return {k: _leaf_to_numpy(v) for k, v in state.items()}
     return {"pop": genotype_to_numpy(state["pop"]),
             "objs": _leaf_to_numpy(state["objs"])}
 

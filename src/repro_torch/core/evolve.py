@@ -1,10 +1,11 @@
-"""Evolution loop: one population, init + n_gens generations.
+"""Evolution loop: one population or one point, init + n_gens generations.
 
-Port of `repro/core/evolve.py` (`get_algo`, `state_best_objs`, `run`).  The
-reference scans the generations inside one XLA program; here a Python loop
-issues each generation's device operations and writes the per-generation
-best into a history tensor that stays on the device, so the loop never
-waits for the card.
+Port of `repro/core/evolve.py` (`get_algo`, `state_best_objs`, `run`) for
+NSGA-II, the GA, sep-CMA-ES and simulated annealing.  The reference scans
+the generations inside one XLA program; here a Python loop issues each
+generation's device operations and writes the per-generation best into a
+history tensor that stays on the device, so the loop never waits for the
+card.
 """
 from __future__ import annotations
 
@@ -17,23 +18,30 @@ from repro_torch.core import hyper
 from repro_torch.core import objectives as O
 from repro_torch.fpga.netlist import Problem
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1 item {})"
-
 
 def get_algo(name: str):
     if name == "nsga2":
         from repro_torch.core import nsga2 as m
-        return m
-    if name in ("ga", "cmaes", "sa"):
-        raise NotImplementedError(f"algorithm {name!r} " + _NOT_PORTED.format(6))
-    raise KeyError(name)
+    elif name == "cmaes":
+        from repro_torch.core import cmaes as m
+    elif name == "sa":
+        from repro_torch.core import annealing as m
+    elif name == "ga":
+        from repro_torch.core import ga as m
+    else:
+        raise KeyError(name)
+    return m
 
 
 def state_best_objs(state: Dict) -> torch.Tensor:
-    """Best (wl^2, bbox) of a population state, without a host sync."""
-    objs = state["objs"]
-    i = torch.argmin(O.combined_metric(objs)).reshape(1)
-    return objs.index_select(0, i)[0]
+    """Best (wl^2, bbox) of a population or point state, without a host sync."""
+    if "objs" in state and state["objs"].dim() == 2:
+        objs = state["objs"]
+        i = torch.argmin(O.combined_metric(objs)).reshape(1)
+        return objs.index_select(0, i)[0]
+    if "best_objs" in state:
+        return state["best_objs"]
+    return state["objs"]
 
 
 def run(problem: Problem, algo: str, cfg, gen: torch.Generator, n_gens: int,
@@ -44,7 +52,7 @@ def run(problem: Problem, algo: str, cfg, gen: torch.Generator, n_gens: int,
     if `device` is CUDA and no card is present: the CPU runs only when asked.
     """
     if islands is not None:
-        raise NotImplementedError("islands " + _NOT_PORTED.format(8))
+        raise NotImplementedError("islands are not ported yet (ROADMAP.md, queue 1 item 8)")
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator is on {gen.device}, run on {dev}")

@@ -111,11 +111,8 @@ def _sbx_body(a, b, u, sign, do, eta):
     return torch.where(do, child, a)
 
 
-def _sbx(gen, a, b, eta, prob):
-    u = _uniform(gen, a)
-    sign = _uniform(gen, a) < 0.5
-    do = _uniform(gen, a) < prob
-    return _sbx_body(a, b, u, sign, do, eta)
+def _sbx_draws(gen, a, prob):
+    return _uniform(gen, a), _uniform(gen, a) < 0.5, _uniform(gen, a) < prob
 
 
 def _poly_mut_body(x, u, do, eta, scale: float = 1.0):
@@ -126,10 +123,8 @@ def _poly_mut_body(x, u, do, eta, scale: float = 1.0):
     return x + torch.where(do, d * scale, 0.0)
 
 
-def _poly_mut(gen, x, eta, prob, scale: float = 1.0):
-    u = _uniform(gen, x)
-    do = _uniform(gen, x) < prob
-    return _poly_mut_body(x, u, do, eta, scale)
+def _poly_mut_draws(gen, x, prob):
+    return _uniform(gen, x), _uniform(gen, x) < prob
 
 
 def _ox_body(p1: torch.Tensor, p2: torch.Tensor, a: torch.Tensor,
@@ -153,11 +148,12 @@ def _ox_body(p1: torch.Tensor, p2: torch.Tensor, a: torch.Tensor,
     return torch.zeros_like(p1).scatter(1, pos_order, fill)
 
 
-def _ox(gen, p1, p2):
+def _ox_draws(gen, p1):
+    """Sorted cut pairs (a, b), each [P]."""
     p, n = p1.shape
     cuts = torch.randint(0, n + 1, (p, 2), generator=gen, device=p1.device)
     cuts = torch.sort(cuts, dim=-1).values
-    return _ox_body(p1, p2, cuts[:, 0], cuts[:, 1])
+    return cuts[:, 0], cuts[:, 1]
 
 
 def _swap_mut_body(perm: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
@@ -173,31 +169,59 @@ def _swap_mut_body(perm: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
     return perm
 
 
-def _swap_mut(gen, perm, n_swaps: int, prob):
+def _swap_mut_draws(gen, perm, n_swaps: int, prob):
+    """Positions i, j [P, n_swaps] and whether each swap happens."""
     p, n = perm.shape
     shape = (p, n_swaps)
     i = torch.randint(0, n, shape, generator=gen, device=perm.device)
     j = torch.randint(0, n, shape, generator=gen, device=perm.device)
     do = torch.rand(shape, generator=gen, device=perm.device) < prob
-    return _swap_mut_body(perm, i, j, do)
+    return i, j, do
+
+
+def _vary_reduced_draws(gen, g1, cfg: NSGA2Config):
+    """Per type: OX cuts (a, b), then swap draws (i, j, do)."""
+    return [_ox_draws(gen, g1[t])
+            + _swap_mut_draws(gen, g1[t], cfg.perm_swaps, cfg.perm_swap_prob)
+            for t in range(3)]
+
+
+def _vary_draws(gen, g1: G.Genotype, cfg: NSGA2Config):
+    """Every draw of `_vary_body` for one child per row of `g1`: per type,
+    the SBX then polynomial-mutation draws of dist, then of loc; then the
+    permutation draws."""
+    real = [_sbx_draws(gen, g1[part][t], cfg.crossover_prob)
+            + _poly_mut_draws(gen, g1[part][t], cfg.real_mut_prob)
+            for t in range(3) for part in ("dist", "loc")]
+    return {"real": real, "perm": _vary_reduced_draws(gen, g1["perm"], cfg)}
+
+
+def _vary_reduced_body(g1, g2, draws):
+    return tuple(_swap_mut_body(_ox_body(g1[t], g2[t], a, b), i, j, do)
+                 for t, (a, b, i, j, do) in enumerate(draws))
+
+
+def _vary_body(g1: G.Genotype, g2: G.Genotype, draws, cfg: NSGA2Config
+               ) -> G.Genotype:
+    """One child per row of the parent populations (full genotype), from
+    the draws of `_vary_draws`."""
+    out = {"dist": [], "loc": []}
+    for k, (u, sign, do, mu, mdo) in enumerate(draws["real"]):
+        t, part = divmod(k, 2)
+        part, scale = (("dist", 1.0), ("loc", 0.25))[part]
+        x = _sbx_body(g1[part][t], g2[part][t], u, sign, do, cfg.sbx_eta)
+        out[part].append(_poly_mut_body(x, mu, mdo, cfg.mut_eta, scale))
+    return {"dist": tuple(out["dist"]),
+            "loc": tuple(torch.clamp(l, 0.0, 1.0) for l in out["loc"]),
+            "perm": _vary_reduced_body(g1["perm"], g2["perm"], draws["perm"])}
 
 
 def _vary(gen, g1: G.Genotype, g2: G.Genotype, cfg: NSGA2Config) -> G.Genotype:
-    """One child per row of the parent populations (full genotype)."""
-    dist, loc = [], []
-    for t in range(3):
-        d = _sbx(gen, g1["dist"][t], g2["dist"][t], cfg.sbx_eta, cfg.crossover_prob)
-        dist.append(_poly_mut(gen, d, cfg.mut_eta, cfg.real_mut_prob, 1.0))
-        l = _sbx(gen, g1["loc"][t], g2["loc"][t], cfg.sbx_eta, cfg.crossover_prob)
-        l = _poly_mut(gen, l, cfg.mut_eta, cfg.real_mut_prob, 0.25)
-        loc.append(torch.clamp(l, 0.0, 1.0))
-    return {"dist": tuple(dist), "loc": tuple(loc),
-            "perm": _vary_reduced(gen, g1["perm"], g2["perm"], cfg)}
+    return _vary_body(g1, g2, _vary_draws(gen, g1, cfg), cfg)
 
 
 def _vary_reduced(gen, g1, g2, cfg: NSGA2Config):
-    return tuple(_swap_mut(gen, _ox(gen, g1[t], g2[t]), cfg.perm_swaps,
-                           cfg.perm_swap_prob) for t in range(3))
+    return _vary_reduced_body(g1, g2, _vary_reduced_draws(gen, g1, cfg))
 
 
 # ------------------------------------------------------------- algorithm

@@ -1,8 +1,9 @@
 """Objective evaluation for placement populations (paper Eqs. 1-2).
 
 Port of `repro/core/objectives.py`.  `evaluate_population` decodes the
-whole population and evaluates it in one batch; the hot reductions go
-through `repro_torch.kernels.ops` (hand-written kernels on CUDA).
+whole population and evaluates it in one batch (`evaluate` is a batch of
+one); the hot reductions go through `repro_torch.kernels.ops`
+(hand-written kernels on CUDA).
 """
 from __future__ import annotations
 
@@ -43,6 +44,12 @@ def objectives_from_coords(problem: Problem, bx: torch.Tensor,
     shape = (*bx.shape[:-1], problem.n_units, BLOCKS_PER_UNIT)
     bb = ops.maxbbox(bx.reshape(shape), by.reshape(shape))
     return wl2, bb
+
+
+def evaluate(problem: Problem, g: G.Genotype, fused: bool = False) -> torch.Tensor:
+    """One genotype (leaves without the population axis) -> objectives [2],
+    as a batch of one: one kernel launch fused, two unfused."""
+    return evaluate_population(problem, G.tree_map(lambda a: a[None], g), fused)[0]
 
 
 def evaluate_population(problem: Problem, pop: G.Genotype,

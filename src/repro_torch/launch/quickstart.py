@@ -4,7 +4,8 @@
 
 Runs NSGA-II on the FPGA device's repeating rectangle on the CUDA card
 (`--torch-device cpu` runs the plain PyTorch path instead), prints the
-Pareto front, and validates the champion placement.
+Pareto front, validates the champion placement, and prints its ASCII
+floorplan and post-placement pipelining report.
 """
 from __future__ import annotations
 
@@ -14,10 +15,10 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import evolve, nsga2
+from repro_torch.core import evolve, nsga2, pipelining
 from repro_torch.core import genotype as G
 from repro_torch.core import objectives as O
-from repro_torch.fpga import device, netlist
+from repro_torch.fpga import device, floorplan, netlist
 
 
 def main(argv=None) -> None:
@@ -49,9 +50,17 @@ def main(argv=None) -> None:
         print(f"  wl2={objs[i, 0]:.3e}  max_bbox={objs[i, 1]:.0f}")
 
     best = int(torch.argmin(O.combined_metric(objs)))
-    O.assert_valid(prob, G.tree_map(lambda a: a[best], state["pop"]))
+    g = G.tree_map(lambda a: a[best], state["pop"])
+    O.assert_valid(prob, g)
     print(f"\nchampion {best}: combined metric "
           f"{float(O.combined_metric(objs[best])):.4e} (validated legal)")
+    print(floorplan.ascii_floorplan(prob, g, width=100, height=24))
+
+    rep = pipelining.auto_pipeline(prob, g, target_mhz=650.0)
+    print(f"\npipelining to 650 MHz: {rep.total_registers} registers, "
+          f"achieved {rep.freq_mhz:.0f} MHz "
+          f"(unpipelined {pipelining.frequency_at_depth(prob, g, 0):.0f} MHz,"
+          f" longest net {rep.max_net_rpm:.0f} RPM)")
 
 
 if __name__ == "__main__":

@@ -16,11 +16,15 @@ from _kernel_sweeps import tol
 from repro.core import evolve as revolve
 from repro.core import nsga2 as RN
 from repro.core import objectives as RO
+from repro_torch.core import annealing as TA
+from repro_torch.core import cmaes as TC
 from repro_torch.core import convert
 from repro_torch.core import evolve as tevolve
+from repro_torch.core import ga as TGA
 from repro_torch.core import genotype as TG
 from repro_torch.core import nsga2 as TN
 from repro_torch.core import objectives as TO
+from repro_torch.core import warmstart as TW
 from repro_torch.fpga import device as tdev
 from repro_torch.fpga import netlist as tnet
 from repro_torch.launch import quickstart
@@ -119,12 +123,18 @@ def test_entry_points_refuse_missing_cuda_and_unported_paths(monkeypatch):
         quickstart.main(["--generations", "1", "--pop", "4"])
     with pytest.raises(ValueError, match="unsupported device"):
         tevolve.run(PORT, "nsga2", TN.NSGA2Config(pop_size=4), gen, 1, device="meta")
-    for algo in ("ga", "cmaes", "sa"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tevolve.get_algo(algo)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for algo, cfg in (("ga", TGA.GAConfig(pop_size=4)), ("cmaes", TC.CMAESConfig(pop_size=4)),
+                      ("sa", TA.SAConfig())):
+        assert tevolve.get_algo(algo) is {"ga": TGA, "cmaes": TC, "sa": TA}[algo]
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tevolve.run(PORT, algo, cfg, gen, 1)
+    with pytest.raises(KeyError):
+        tevolve.get_algo("pso")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tevolve.run(PORT, "nsga2", TN.NSGA2Config(pop_size=4), gen, 1,
                     islands=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        TW.member_warm_init()
 
 
 def test_quickstart_runs_on_cpu(capsys):
@@ -132,3 +142,5 @@ def test_quickstart_runs_on_cpu(capsys):
                      "--torch-device", "cpu"])
     out = capsys.readouterr().out
     assert "Pareto front" in out and "validated legal" in out
+    assert "[xcvu_test: U=URAM | D=DSP | B=BRAM; .=column site]" in out
+    assert "pipelining to 650 MHz" in out
