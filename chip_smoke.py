@@ -9,7 +9,9 @@
    the xcvu9p width), in f32 and bf16 (flash
    attention over the reference's test grid, the serving path's prefill
    shapes, gemma3's D = 256 under a window and the tile edges of its
-   tensor-core routes; domination bitwise, at the edges of its tiles too).
+   tensor-core routes; domination bitwise, at the edges of its tiles too,
+   and with its batch axis, B in {1, 4, 8} x P in {16, 64, 128}, directly
+   and under `torch.func.vmap`; the evaluation kernels under vmap).
 3. Runs the placement path, NSGA-II on xcvu11p (80 conv units, pop 64, 200
    generations), through `repro_torch.core.evolve.run`, once unfused and
    once fused, with every launch counter set to 0 just before each run and
@@ -29,6 +31,17 @@
    against the plain versions on the CPU, and its improvement checked;
    the warm start's first generation must be at least as good as the
    scratch run's.  Each champion is pipelined to 650 MHz.
+   Then the portfolio, racing and islands at xcvu11p full width: K = 4
+   NSGA-II configs (sbx_eta, real_mut_prob; pop 64, 20 generations)
+   through `portfolio.run_portfolio`, unfused and fused, and K = 8 SA
+   chains (200 steps), each at K = 1 too, with exact launches (one per
+   kernel and generation whatever K, plus one evaluation per member at
+   init), each member held against its own `evolve.run` on the card
+   (integers exactly, floats within tol), and ms and device ops per
+   generation batched against independent; `portfolio.race` (K = 4,
+   rounds of 5, patience 2); islands (P = 4, migrate every 5, 20
+   generations) with their launches, P = 1 against `evolve.run` bit for
+   bit, and BENCH_placement.json["islands"]'s gens to target on xcvu_test.
    Then serves yi-6b at full width (fp32, weights from seed 0) through
    `repro_torch.serve.engine.Engine`: 8 requests of 77-2048 prompt tokens
    and 32 new tokens each over 4 slots, with the launch counters set to 0
@@ -42,7 +55,7 @@
    (and each call's device time from a
    torch.profiler trace: the kernel and any memset or copy the call
    issues), domination against its plain version over
-   SWEEP_ROWS, flash attention at the serving path's longest prefill
+   SWEEP_ROWS and batched at [4, 128, 2] and [8, 128, 2], flash attention at the serving path's longest prefill
    against `scaled_dot_product_attention` as a yardstick (f32 beside its
    FMA and 3xTF32 bounds), and a generation against its rank peeling and
    its device busy share.
@@ -91,6 +104,8 @@ FLASH_CASES = ([(b, h, hkv, s, s, d, None, 0.02) for b, h, hkv, s, d in (
 # stores; 256 x 16 tiles up to 256 rows, 64 x 64 tiles and a memset above)
 # and a size past the island batch
 DOM_SIZES = (1, 3, 7, 32, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 2048, 4096)
+# domination's batch axis: B problems of P rows in one launch
+DOM_BATCHES, DOM_BATCH_SIZES = (1, 4, 8), (16, 64, 128)
 # the baselines' and the transfer's shapes: SA's 1 row, CMA-ES's lambda = 24
 # (and 25 past it), the GA's 48, and the transfer's 32 and 64 rows, at the
 # xcvu11p width and the xcvu3p / xcvu9p width (gids, nets, units, blocks)
@@ -103,6 +118,15 @@ SA_STEPS, SA_SCHEDULE_STEPS = 2000, 50
 # Table II at benchmarks/table2_transfer.py's quick scale, one target device
 TRANSFER_SRC, TRANSFER_DST = "xcvu3p", "xcvu9p"
 TRANSFER_POP, TRANSFER_GENS = 32, 60
+# the portfolio, racing and islands at xcvu11p full width: K NSGA-II
+# configs (sbx_eta, real_mut_prob), SA chains with K t0s, a race, P islands;
+# then BENCH_placement.json["islands"]'s contract on xcvu_test
+PF_ETA_MUT = ((10.0, 0.05), (15.0, 0.1), (20.0, 0.2), (30.0, 0.3))
+PF_GENS = 20
+SA_K_T0, SA_K_STEPS = (0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 4.0, 6.0), 200
+RACE_MAX_GENS, RACE_GENS_PER_ROUND = 40, 5
+ISL_P, ISL_MIGRATE, ISL_GENS, ISL_P1_GENS = 4, 5, 20, 10
+ISL_BENCH_P, ISL_BENCH_POP, ISL_BENCH_MIGRATE, ISL_BENCH_BUDGET = 4, 16, 2, 48
 SERVE_ARCH = "yi-6b"
 SERVE_PROMPTS = (2048, 1531, 1024, 700, 512, 257, 128, 77)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 2080, 32
@@ -216,6 +240,36 @@ def check_kernels(rng):
                     raise AssertionError(f"domination counts differ at P={p}, M={m}, {dtype}")
                 n_cases["domination"] += 1
                 n_cases["domination_counts"] += 1
+        # the batch axis of domination (portfolio members, islands): one
+        # launch for B problems, directly and through vmap's rule
+        for nb in DOM_BATCHES:
+            for p in DOM_BATCH_SIZES:
+                objs = torch.tensor(rng.uniform(size=(nb, p, 2)), dtype=torch.float32)
+                objs[:, p // 2:] = torch.round(objs[:, p // 2:] * 4) / 4     # ties
+                objs = objs.to(device=dev, dtype=dtype)
+                want, want_cnt = ref.domination_counts_ref(objs)
+                got = domination.domination(objs)
+                got2, cnt = domination.domination_counts(objs)
+                got3 = torch.func.vmap(domination.domination)(objs)
+                got4, cnt4 = torch.func.vmap(domination.domination_counts)(objs)
+                torch.cuda.synchronize()
+                for d, c in ((got, None), (got2, cnt), (got3, None), (got4, cnt4)):
+                    if not torch.equal(d, want) or (c is not None and not torch.equal(c, want_cnt)):
+                        raise AssertionError(f"batched domination differs at B={nb}, P={p}, {dtype}")
+                n_cases["domination"] += 2
+                n_cases["domination_counts"] += 2
+        # the evaluation kernels under vmap: the member axis folded into rows
+        g, n, u, b = SLICE_SHAPES[0]
+        src, dst, uidx = ints(g, n), ints(g, n), ints(g, u, b)
+        w = (coords(n).abs() * 0.002).to(dtype)
+        cx, cy = coords(4, 16, g).to(dtype), coords(4, 16, g).to(dtype)
+        close("fused_eval", torch.func.vmap(fused_eval.fused_eval, in_dims=(0, 0) + (None,) * 4)(
+            cx, cy, src, dst, w, uidx), ref.fused_eval_ref(cx, cy, src, dst, w, uidx), dtype)
+        xs = [coords(4, 16, n).to(dtype) for _ in range(4)]
+        close("wirelength2", torch.func.vmap(wirelength.wirelength2, in_dims=(0,) * 4 + (None,))(
+            *xs, w), ref.wirelength2_ref(*xs, w), dtype)
+        ux, uy = coords(4, 16, u, b).to(dtype), coords(4, 16, u, b).to(dtype)
+        close("maxbbox", torch.func.vmap(bbox.maxbbox)(ux, uy), ref.maxbbox_ref(ux, uy), dtype)
         for b, h, hkv, s, t, d, window, scale in FLASH_CASES:
             q = (coords(b, h, s, d) * (scale / 50)).to(dtype)
             k, v = ((coords(b, hkv, t, d) * (scale / 50)).to(dtype) for _ in range(2))
@@ -500,6 +554,204 @@ def run_table2(kernels):
     return row, paths
 
 
+# ------------------------------------------------------------ phase 3d
+
+def same_run(what, got, want):
+    """A batched member against its independent run on the card: integer
+    leaves (permutations, counters) exactly, floats within tol(float32),
+    and, for a population, the final Pareto ranks exactly."""
+    import torch
+
+    from repro_torch.core import nsga2
+
+    got_l, want_l = (torch.utils._pytree.tree_leaves(t) for t in (got, want))
+    for a, b in zip(got_l, want_l, strict=True):
+        if a.is_floating_point():
+            torch.testing.assert_close(a, b, **tol(torch.float32), msg=lambda m: f"{what}: {m}")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{what}: an integer leaf differs")
+    if "pop" in got and not torch.equal(nsga2.nondominated_rank(got["objs"]),
+                                        nsga2.nondominated_rank(want["objs"])):
+        raise AssertionError(f"{what}: final ranks differ")
+
+
+def batched_gen_profile(problem, algo, cfgs, reps: int = 1):
+    """One batched generation of len(cfgs) members under torch.profiler:
+    (host ms, device ops, device busy share)."""
+    import torch
+
+    from repro_torch.core import hyper
+    from repro_torch.core import portfolio as TP
+
+    static_key, traced = hyper.stack_configs(cfgs, "cuda")
+    gens = [torch.Generator(device="cuda").manual_seed(SEED + 50 + i) for i in range(len(cfgs))]
+    states = TP.member_init(problem, algo, static_key, traced, gens)
+    member_cfgs = [hyper.unstack_config(static_key, traced, i) for i in range(len(cfgs))]
+    wall_us, ops, busy, _ = profiled(lambda: TP.batched_step(
+        problem, algo, static_key, traced, member_cfgs, states, gens), reps)
+    return dict(ms=wall_us / reps / 1e3, device_ops=ops, busy=busy)
+
+
+def run_portfolio_phase(problem, kernels):
+    """Portfolios of NSGA-II (one member per PF_ETA_MUT, unfused and fused)
+    and of SA chains (one per SA_K_T0): launches per generation at K = 1
+    and K, each member against its independent `evolve.run` on the card,
+    and ms and device ops per generation, batched against independent."""
+    import torch
+
+    from repro_torch.core import annealing, evolve, nsga2
+    from repro_torch.core import portfolio as TP
+
+    def gens(seeds):
+        return [torch.Generator(device="cuda").manual_seed(s) for s in seeds]
+
+    out, paths = {}, {}
+    runs = [("nsga2", f, [nsga2.NSGA2Config(pop_size=POP, fused=f, sbx_eta=e, real_mut_prob=m)
+                          for e, m in PF_ETA_MUT], PF_GENS) for f in (False, True)]
+    runs.append(("sa", False, [annealing.SAConfig(schedule="hyperbolic", beta=2e-3, t0=t)
+                               for t in SA_K_T0], SA_K_STEPS))
+    for algo, fused, cfgs, n in runs:
+        t0 = time.perf_counter()
+        name = f"portfolio_{algo}_{'fused' if fused else 'unfused'}"
+        k, n1 = len(cfgs), max(n // 4, 10)      # K = 1 runs a quarter of the generations
+        seeds = [SEED + 10 + i for i in range(k)]
+        res, dt, launches = counted(kernels, lambda: TP.run_portfolio(
+            problem, algo, cfgs, gens=gens(seeds), n_gens=n, device="cuda"))
+        res1, dt1, launches1 = counted(kernels, lambda: TP.run_portfolio(
+            problem, algo, cfgs[:1], gens=gens(seeds[:1]), n_gens=n1, device="cuda"))
+        for kk, nn, got in ((k, n, launches), (1, n1, launches1)):
+            want = ({"fused_eval": kk + nn, "domination+counts": 2 * nn} if fused else
+                    {"wirelength2": kk + nn, "maxbbox": kk + nn} |
+                    ({"domination": 2 * nn} if algo == "nsga2" else {}))
+            paths[f"{name}_k{kk}"] = expect_launches(f"{name} K={kk}", got, want)
+        # each member (SA: the first and the last) against its own run
+        solo_s = 0.0
+        for i in (range(k) if algo == "nsga2" else (0, k - 1)):
+            (st, hist), dts, solo_launches = counted(kernels, lambda: evolve.run(
+                problem, algo, cfgs[i], gens(seeds[i:i + 1])[0], n, device="cuda"))
+            paths[f"{name}_solo{i}"] = solo_launches
+            solo_s += dts
+            same_run(f"{name} member {i}", res.member_state(i), st)
+            torch.testing.assert_close(res.history[i], hist, **tol(torch.float32))
+        n_solo = k if algo == "nsga2" else 2
+        prof1 = batched_gen_profile(problem, algo, cfgs[:1])
+        prof = batched_gen_profile(problem, algo, cfgs)
+        out[name] = dict(k=k, gens=n, gens_k1=n1, ms_per_gen=dt / n * 1e3,
+                         ms_per_gen_k1=dt1 / n1 * 1e3, phase_s=time.perf_counter() - t0,
+                         solo_ms_per_gen=solo_s / n_solo / n * 1e3,
+                         independent_ms_per_gen_for_k=solo_s / n_solo / n * 1e3 * k,
+                         device_ops_per_gen_k1=prof1["device_ops"],
+                         device_ops_per_gen=prof["device_ops"],
+                         busy_k1=prof1["busy"], busy=prof["busy"],
+                         profiled_ms_k1=prof1["ms"], profiled_ms=prof["ms"],
+                         best=float(res.metric.min()), members_checked=n_solo)
+    return out, paths
+
+
+def run_race_phase(problem, kernels):
+    """`portfolio.race` of the unfused NSGA-II portfolio: the rounds it ran
+    and its champion (legal, its objectives the plain versions' on the CPU)."""
+    import torch
+
+    from repro_torch.core import nsga2
+    from repro_torch.core import portfolio as TP
+
+    cfgs = [nsga2.NSGA2Config(pop_size=POP, sbx_eta=e, real_mut_prob=m) for e, m in PF_ETA_MUT]
+    res, dt, launches = counted(kernels, lambda: TP.race(
+        problem, "nsga2", cfgs, gen=torch.Generator(device="cuda").manual_seed(SEED + 20),
+        max_gens=RACE_MAX_GENS, gens_per_round=RACE_GENS_PER_ROUND, patience=2, device="cuda"))
+    n = res.gens
+    expect_launches("race", launches, {"wirelength2": len(cfgs) + n, "maxbbox": len(cfgs) + n,
+                                       "domination": 2 * n})
+    if res.history.shape != (res.rounds, len(cfgs), 2) or not torch.isfinite(res.history).all():
+        raise AssertionError("race: history is not finite [rounds, K, 2]")
+    g, objs = TP.best_genotype(problem, "nsga2", res.member_state(res.champion))
+    check_champion(problem, g, objs)
+    return dict(rounds=res.rounds, gens=n, champion=res.champion, seconds=dt,
+                metric=[float(m) for m in res.metric],
+                round_best=[float(r.min()) for r in (res.history[..., 0] * res.history[..., 1])]
+                ), launches
+
+
+def run_islands_phase(problem, kernels):
+    """Islands on the card: P = ISL_P at xcvu11p (launches, ms and device
+    ops per generation, the champion), P = 1 against `evolve.run` bit for
+    bit, and BENCH_placement.json["islands"]'s gens to target on xcvu_test."""
+    import torch
+
+    from repro_torch.core import evolve, nsga2
+    from repro_torch.core import islands as TI
+    from repro_torch.core import objectives as O
+    from repro_torch.fpga import device, netlist
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    paths, out = {}, {}
+    cfg = nsga2.NSGA2Config(pop_size=POP)
+    icfg = TI.IslandConfig(ISL_P, ISL_MIGRATE)
+    (st, hist), dt, launches = counted(kernels, lambda: evolve.run(
+        problem, "nsga2", cfg, gen(SEED + 30), ISL_GENS, islands=icfg, device="cuda"))
+    paths["islands"] = expect_launches("islands", launches, {
+        "wirelength2": ISL_P + ISL_GENS, "maxbbox": ISL_P + ISL_GENS, "domination": 2 * ISL_GENS})
+    if hist.shape != (ISL_GENS, ISL_P, 2) or not torch.isfinite(hist).all():
+        raise AssertionError("islands: history is not finite [gens, P, 2]")
+    g, objs = TI.best_genotype(problem, "nsga2", st)
+    check_champion(problem, g, objs)
+    prof = batched_gen_profile(problem, "nsga2", [cfg] * ISL_P)
+    out["xcvu11p"] = dict(ms_per_gen=dt / ISL_GENS * 1e3, device_ops_per_gen=prof["device_ops"],
+                          busy=prof["busy"], first=float(O.combined_metric(hist[0]).min()),
+                          best=float(O.combined_metric(objs)))
+
+    # P = 1 is the single-population run, bit for bit
+    (s1, h1), _, launches = counted(kernels, lambda: evolve.run(
+        problem, "nsga2", cfg, gen(SEED + 31), ISL_P1_GENS, islands=TI.IslandConfig(1, 0),
+        device="cuda"))
+    paths["islands_p1"] = launches
+    (s0, h0), _, launches = counted(kernels, lambda: evolve.run(
+        problem, "nsga2", cfg, gen(SEED + 31), ISL_P1_GENS, device="cuda"))
+    paths["islands_p1_single"] = launches
+    if not torch.equal(h1[:, 0], h0) or not all(
+            torch.equal(a[0], b) for a, b in zip(torch.utils._pytree.tree_leaves(s1),
+                                                 torch.utils._pytree.tree_leaves(s0),
+                                                 strict=True)):
+        raise AssertionError("islands(P=1) differs from evolve.run")
+
+    # BENCH_placement.json["islands"] at its own scale: the target is a
+    # probe single population's final metric after 2/3 of the budget; the
+    # islands' own budget is budget / P generations (the same evaluations),
+    # and they run the whole budget so that a later hit shows too
+    small = netlist.make_problem(device.get_device("xcvu_test"))
+    scfg = nsga2.NSGA2Config(pop_size=ISL_BENCH_POP)
+
+    def gens_to_target(hist, target):
+        comb = O.combined_metric(hist).cpu()
+        comb = comb.min(dim=-1).values if comb.dim() == 2 else comb
+        hit = torch.nonzero(comb <= target).flatten()
+        return int(hit[0]) + 1 if len(hit) else None
+
+    (probe, _), _, paths["islands_bench_probe"] = counted(kernels, lambda: evolve.run(
+        small, "nsga2", scfg, gen(123), 2 * ISL_BENCH_BUDGET // 3, device="cuda"))
+    target = float(O.combined_metric(evolve.state_best_objs(probe)))
+    (_, hs), dts, paths["islands_bench_single"] = counted(kernels, lambda: evolve.run(
+        small, "nsga2", scfg, gen(SEED), ISL_BENCH_BUDGET, device="cuda"))
+    n_isl = ISL_BENCH_BUDGET // ISL_BENCH_P
+    (_, hi), dti, paths["islands_bench_islands"] = counted(kernels, lambda: evolve.run(
+        small, "nsga2", scfg, gen(SEED), ISL_BENCH_BUDGET,
+        islands=TI.IslandConfig(ISL_BENCH_P, ISL_BENCH_MIGRATE), device="cuda"))
+    def best_after(hist, n):
+        return float(O.combined_metric(hist[:n]).min())
+
+    out["bench_xcvu_test"] = dict(target=target, single_gens_to_target=gens_to_target(hs, target),
+                                  islands_gens_to_target=gens_to_target(hi, target),
+                                  single_best=best_after(hs, ISL_BENCH_BUDGET),
+                                  islands_best_at_budget=best_after(hi, n_isl),
+                                  islands_best=best_after(hi, ISL_BENCH_BUDGET),
+                                  single_budget=ISL_BENCH_BUDGET, islands_budget=n_isl,
+                                  single_s=dts, islands_s=dti)
+    return out, paths
+
+
 # ------------------------------------------------------------ phase 4
 
 def time_ms(fn, iters=200) -> float:
@@ -650,6 +902,22 @@ def kernel_figures(problem, coords, objs, errs, launches):
         sweep[p] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), device_ms=dev,
                         device_ops=ops)
     rows["domination_counts"]["sweep"] = sweep
+    # the batch axis: B problems of 128 rows in one launch (islands, members)
+    for name in ("domination", "domination_counts"):
+        rows[name]["batched"] = {}
+        for nb in (4, 8):
+            o = torch.rand(nb, 2 * POP, 2, device="cuda")
+            kern = ((lambda o=o: domination.domination(o)) if name == "domination" else
+                    (lambda o=o: domination.domination_counts(o)))
+            plain = ((lambda o=o: ref.domination_ref(o)) if name == "domination" else
+                     (lambda o=o: ref.domination_counts_ref(o)))
+            q = 2 * POP
+            bms, by_what = bound_ms(nb * (8 * q + q * q + (4 * q if name != "domination" else 0)),
+                                    nb * 6 * q * q)
+            dev, ops = device_profile(kern, SYMBOLS[name])
+            rows[name]["batched"][f"[{nb}, {q}, 2]"] = dict(
+                ms=time_ms(kern), device_ms=dev, device_ops=ops, bound_ms=bms,
+                bound_by=by_what, plain_ms=time_ms(plain))
     return [rows[k] for k in meta]
 
 
@@ -1052,6 +1320,47 @@ def main() -> int:
           f"{table2['first_warm']:.4e}; seconds {table2['seconds']}")
     for name in ("transfer_seed", "transfer_scratch", "transfer_warm"):
         print(f"  launches {name}: {by_path[name]}")
+
+    # the portfolio, racing and islands: K members or P islands per launch
+    print(f"[{time.perf_counter() - start:.1f} s] portfolio: NSGA-II K = {len(PF_ETA_MUT)} "
+          f"pop {POP} x {PF_GENS} gens unfused and fused, SA K = {len(SA_K_T0)} x "
+          f"{SA_K_STEPS} steps; race; islands P = {ISL_P}")
+    portfolios, paths = run_portfolio_phase(problem, kernels)
+    by_path.update(paths)
+    for name, v in portfolios.items():
+        print(f"  {name} ({v['phase_s']:.1f} s): K = {v['k']}, {v['gens']} gens: "
+              f"{v['ms_per_gen']:.3f} ms per gen batched (K = 1, {v['gens_k1']} gens: "
+              f"{v['ms_per_gen_k1']:.3f}); independent {v['solo_ms_per_gen']:.3f} ms per "
+              f"gen each, {v['independent_ms_per_gen_for_k']:.3f} for K; device ops per gen "
+              f"K = 1 {v['device_ops_per_gen_k1']:.0f}, K = {v['k']} {v['device_ops_per_gen']:.0f}; "
+              f"device busy {v['busy_k1']} / {v['busy']}; one generation under the profiler "
+              f"{v['profiled_ms_k1']:.3f} / {v['profiled_ms']:.3f} ms; {v['members_checked']} "
+              f"members equal "
+              f"their independent runs; best combined {v['best']:.4e}")
+        for kk in (1, v["k"]):
+            print(f"    launches K = {kk}: {by_path[f'{name}_k{kk}']}")
+    print(f"[{time.perf_counter() - start:.1f} s] race")
+    race, by_path["race"] = run_race_phase(problem, kernels)
+    print(f"  race (K = {len(PF_ETA_MUT)}, rounds of {RACE_GENS_PER_ROUND}, max {RACE_MAX_GENS} "
+          f"gens, patience 2): {race['rounds']} rounds, {race['gens']} gens, {race['seconds']:.3f} s; "
+          f"champion member {race['champion']}, metrics {race['metric']}; best per round "
+          f"{race['round_best']}; launches {by_path['race']}")
+    print(f"[{time.perf_counter() - start:.1f} s] islands")
+    islands, paths = run_islands_phase(problem, kernels)
+    by_path.update(paths)
+    v = islands["xcvu11p"]
+    print(f"  islands P = {ISL_P}, migrate every {ISL_MIGRATE}, pop {POP} x {ISL_GENS} gens: "
+          f"{v['ms_per_gen']:.3f} ms per gen, {v['device_ops_per_gen']:.0f} device ops per gen, "
+          f"device busy {v['busy']}; best combined {v['first']:.4e} -> {v['best']:.4e}; "
+          f"launches {by_path['islands']}; islands(P=1) == evolve.run over {ISL_P1_GENS} gens: True")
+    v = islands["bench_xcvu_test"]
+    print(f"  BENCH islands on xcvu_test (P {ISL_BENCH_P}, pop {ISL_BENCH_POP}, migrate every "
+          f"{ISL_BENCH_MIGRATE}): target {v['target']:.4e}; gens to target single "
+          f"{v['single_gens_to_target']} of {v['single_budget']} ({v['single_s']:.3f} s), islands "
+          f"{v['islands_gens_to_target']} (their equal-evaluation budget {v['islands_budget']}, "
+          f"{ISL_BENCH_BUDGET} run in {v['islands_s']:.3f} s); best combined single after "
+          f"{ISL_BENCH_BUDGET} gens {v['single_best']:.4e}, islands after {v['islands_budget']} "
+          f"{v['islands_best_at_budget']:.4e} and after {ISL_BENCH_BUDGET} {v['islands_best']:.4e}")
     print(f"[{time.perf_counter() - start:.1f} s] serving")
 
     # the serving path at full width: every prefill attention layer runs
@@ -1111,6 +1420,11 @@ def main() -> int:
                       f"in {v['device_ops']} ops"
                       for p, v in next(r for r in rows if r["name"] == "domination_counts")
                       ["sweep"].items()))
+    for name in ("domination", "domination_counts"):
+        for key, v in next(r for r in rows if r["name"] == name)["batched"].items():
+            print(f"{name} batched {key}: {v['ms']:.4f} ms per call, device {v['device_ms']} ms "
+                  f"in {v['device_ops']} ops, bound {v['bound_ms']:.6f} ms ({v['bound_by']}), "
+                  f"plain {v['plain_ms']:.4f} ms")
     for fused, v in generation_profile(problem).items():
         print(f"generation ({fused}): step {v['step_ms']:.3f} ms, two rank peels "
               f"{v['peel_ms']:.3f} ms ({100 * v['peel_share']:.1f}% of the step); "

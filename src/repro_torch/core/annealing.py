@@ -6,7 +6,7 @@ mapping keys inside one permutation block, and Metropolis acceptance on
 the scalarized log(wl^2 x bbox).
 
 The state keeps the reference's shapes: `z` and `best_z` flat [n], the
-scalars 0-d, `k` int32.  A step draws its random numbers (`_draws`) and
+scalars 0-d, `k` int32.  A step draws its random numbers (`step_draws`) and
 hands them to the pure `step_body`; the reference's three-way `lax.switch`
 move becomes `_move_body`, which computes all three candidates and picks
 one with `torch.where`.  Acceptance and the best-so-far update stay on the
@@ -103,11 +103,14 @@ def _move_body(problem: Problem, z: torch.Tensor, sigma, kind, i_dist, i_loc,
 
     XLA compiles the reference's perturbation into one fused multiply-add.
     The fp32 product is exact in fp64, so adding it there and rounding once
-    to fp32 gives the same gene."""
-    step = (noise.double() * hyper.as_f32(sigma, z.device).double()).reshape(1)
+    to fp32 gives the same gene.  The gene is picked by a position mask, not
+    `index_add`, whose vmap rule loops over the batch when the index is
+    batched."""
+    step = noise.double() * hyper.as_f32(sigma, z.device).double()
     z64 = z.double()
-    z_dist = z64.index_add(0, i_dist.reshape(1), step).float()
-    z_loc = z64.index_add(0, i_loc.reshape(1), step).float()
+    pos = torch.arange(z.shape[0], device=z.device)
+    z_dist = torch.where(pos == i_dist, z64 + step, z64).float()
+    z_loc = torch.where(pos == i_loc, z64 + step, z64).float()
     lo, _ = _perm_block(problem, t)
     ii, jj = (lo + i).reshape(1), (lo + j).reshape(1)
     z_swap = z.index_copy(0, ii, z.index_select(0, jj)).index_copy(
@@ -115,10 +118,10 @@ def _move_body(problem: Problem, z: torch.Tensor, sigma, kind, i_dist, i_loc,
     return torch.where(kind == 0, z_dist, torch.where(kind == 1, z_loc, z_swap))
 
 
-def _draws(problem: Problem, gen: torch.Generator) -> Dict:
-    """The move's draws, then the acceptance uniform u."""
+def step_draws(problem: Problem, cfg: SAConfig, state: Dict, gen: torch.Generator):
+    """(move, u): the move's draws, then the acceptance uniform u."""
     move = _move_draws(problem, gen)
-    return dict(move=move, u=torch.rand((), generator=gen, device=gen.device))
+    return move, torch.rand((), generator=gen, device=gen.device)
 
 
 def step_body(problem: Problem, cfg: SAConfig, state: Dict, move: Dict,
@@ -146,7 +149,7 @@ def step_body(problem: Problem, cfg: SAConfig, state: Dict, move: Dict,
 
 def step_impl(problem: Problem, cfg: SAConfig, state: Dict,
               gen: torch.Generator) -> Dict:
-    return step_body(problem, cfg, state, **_draws(problem, gen))
+    return step_body(problem, cfg, state, *step_draws(problem, cfg, state, gen))
 
 
 

@@ -7,7 +7,7 @@ permutations as argsort keys) on the scalarized objective
 log(wl^2) + log(max bbox), with the covariance restricted to its diagonal
 and the separable learning-rate speedup c_cov *= (n + 2) / 3.
 
-`step_impl` draws z [lambda, n] and hands it to the pure `step_body`.  The
+`step_draws` draws z [lambda, n] and `step_body` is pure.  The
 learning rates are fp32 tensors as in the reference (where they are f32
 arrays) and chi_n a Python float, so the state follows the reference's to
 fp32 rounding; ranking uses a stable argsort, as `jnp.argsort` does.
@@ -145,12 +145,16 @@ def step_body(problem: Problem, cfg: CMAESConfig, state: Dict,
             "best_objs": best_objs, "best_z": best_z}
 
 
+def step_draws(problem: Problem, cfg: CMAESConfig, state: Dict,
+               gen: torch.Generator):
+    """(z,): the generation's lambda standard normal samples [lambda, n]."""
+    n = problem.continuous_dim
+    return (torch.randn(cfg.lam(n), n, generator=gen, device=gen.device),)
+
+
 def step_impl(problem: Problem, cfg: CMAESConfig, state: Dict,
               gen: torch.Generator) -> Dict:
-    n = problem.continuous_dim
-    z = torch.randn(cfg.lam(n), n, generator=gen, device=gen.device)
-    return step_body(problem, cfg, state, z)
-
+    return step_body(problem, cfg, state, *step_draws(problem, cfg, state, gen))
 
 
 def best_genotype(problem: Problem, state: Dict) -> Tuple[G.Genotype, torch.Tensor]:

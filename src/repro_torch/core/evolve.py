@@ -48,11 +48,16 @@ def run(problem: Problem, algo: str, cfg, gen: torch.Generator, n_gens: int,
         islands=None, device="cuda") -> Tuple[Dict, torch.Tensor]:
     """Full optimisation on `device`, drawing from `gen` (on that device).
 
-    Returns (state, history[n_gens, 2]), the history on the device.  Raises
-    if `device` is CUDA and no card is present: the CPU runs only when asked.
+    Returns (state, history[n_gens, 2]), the history on the device.  With
+    `islands=IslandConfig(P, migrate_every)` the run dispatches to
+    `core.islands.run`: island-stacked states [P, ...] and per-island
+    history [n_gens, P, 2] (the single-population result at P = 1).
+    Raises if `device` is CUDA and no card is present: the CPU runs only
+    when asked.
     """
     if islands is not None:
-        raise NotImplementedError("islands are not ported yet (ROADMAP.md, queue 1 item 8)")
+        from repro_torch.core import islands as I
+        return I.run(problem, algo, cfg, gen, n_gens, islands=islands, device=device)
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator is on {gen.device}, run on {dev}")

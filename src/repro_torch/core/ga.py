@@ -5,8 +5,8 @@ polynomial mutation on the real tiers, OX + swap on the permutations), a
 plain fitness tournament on the scalarized objective, and elitist
 truncation over parents + children.
 
-`step_impl` is a draw step (`_draws`: the two tournaments' index pairs and
-the variation draws) followed by the pure `step_body`, so the body can be
+`step_impl` is a draw step (`step_draws`: the two tournaments' index pairs
+and the variation draws) followed by the pure `step_body`, so the body can be
 held against the reference on the reference's own random numbers.
 """
 from __future__ import annotations
@@ -41,13 +41,13 @@ def init_state(problem: Problem, gen: torch.Generator, cfg: GAConfig) -> Dict:
     return {"pop": pop, "objs": O.evaluate_population(problem, pop, cfg.fused)}
 
 
-def _draws(gen: torch.Generator, cfg: GAConfig, pop: G.Genotype):
+def step_draws(problem: Problem, cfg: GAConfig, state: Dict, gen: torch.Generator):
     """(ia1, ib1, ia2, ib2) [P] for the two tournaments, then the draws of
     `nsga2._vary_body` for P children."""
     p = cfg.pop_size
     tour = tuple(torch.randint(0, p, (p,), generator=gen, device=gen.device)
                  for _ in range(4))
-    return tour, N._vary_draws(gen, pop, cfg)
+    return tour, N._vary_draws(gen, state["pop"], cfg)
 
 
 def step_body(problem: Problem, cfg: GAConfig, state: Dict, tour, vary) -> Dict:
@@ -73,4 +73,4 @@ def step_body(problem: Problem, cfg: GAConfig, state: Dict, tour, vary) -> Dict:
 
 def step_impl(problem: Problem, cfg: GAConfig, state: Dict,
               gen: torch.Generator) -> Dict:
-    return step_body(problem, cfg, state, *_draws(gen, cfg, state["pop"]))
+    return step_body(problem, cfg, state, *step_draws(problem, cfg, state, gen))

@@ -86,7 +86,7 @@ def _decode_type(geom: TypeGeom, tabs: TypeTables, dist: torch.Tensor,
 
     bounds = torch.cumsum(counts, dim=-1)              # exclusive upper bounds
     chain_idx = torch.arange(N, device=dev).expand(p, N).contiguous()
-    col = torch.searchsorted(bounds, chain_idx, right=True).clamp_(0, C - 1)
+    col = torch.searchsorted(bounds, chain_idx, right=True).clamp(0, C - 1)
 
     # within-column order by location gene: one sort on (col, loc)
     locc = torch.clamp(loc.float(), 0.0, 1.0 - 1e-6)

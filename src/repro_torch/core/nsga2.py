@@ -8,9 +8,11 @@ the SS IV-B2 reduced genotype.
 
 Each stochastic operator is a draw step on an explicit `torch.Generator`
 followed by a pure body that takes the draws as tensors (`*_body`), so the
-bodies can be held against the reference on the same random numbers.  No
-function here syncs with the host: a generation is a fixed sequence of
-device operations.
+bodies can be held against the reference on the same random numbers.  A
+generation is the same split: `step_draws` makes every draw, `step_body`
+is pure, so `torch.func.vmap` can run the bodies of many members or
+islands as one batched program.  No function here syncs with the host: a
+generation is a fixed sequence of device operations.
 """
 from __future__ import annotations
 
@@ -160,12 +162,11 @@ def _swap_mut_body(perm: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
                    do: torch.Tensor) -> torch.Tensor:
     """Sequential swap mutations: for s in order, row k swaps positions
     i[k, s] and j[k, s] when do[k, s]."""
-    perm = perm.clone()
     for s in range(i.shape[1]):
         ii, jj, dd = i[:, s:s + 1], j[:, s:s + 1], do[:, s:s + 1]
         pi, pj = torch.gather(perm, 1, ii), torch.gather(perm, 1, jj)
-        perm.scatter_(1, ii, torch.where(dd, pj, pi))
-        perm.scatter_(1, jj, torch.where(dd, pi, pj))
+        perm = perm.scatter(1, ii, torch.where(dd, pj, pi))
+        perm = perm.scatter(1, jj, torch.where(dd, pi, pj))
     return perm
 
 
@@ -216,26 +217,11 @@ def _vary_body(g1: G.Genotype, g2: G.Genotype, draws, cfg: NSGA2Config
             "perm": _vary_reduced_body(g1["perm"], g2["perm"], draws["perm"])}
 
 
-def _vary(gen, g1: G.Genotype, g2: G.Genotype, cfg: NSGA2Config) -> G.Genotype:
-    return _vary_body(g1, g2, _vary_draws(gen, g1, cfg), cfg)
-
-
-def _vary_reduced(gen, g1, g2, cfg: NSGA2Config):
-    return _vary_reduced_body(g1, g2, _vary_reduced_draws(gen, g1, cfg))
-
-
 # ------------------------------------------------------------- algorithm
 
 def _tournament_body(rank, crowd, ia, ib) -> torch.Tensor:
     better = (rank[ia] < rank[ib]) | ((rank[ia] == rank[ib]) & (crowd[ia] > crowd[ib]))
     return torch.where(better, ia, ib)
-
-
-def _tournament(gen, rank, crowd, n: int) -> torch.Tensor:
-    p = rank.shape[0]
-    ia = torch.randint(0, p, (n,), generator=gen, device=rank.device)
-    ib = torch.randint(0, p, (n,), generator=gen, device=rank.device)
-    return _tournament_body(rank, crowd, ia, ib)
 
 
 def _lexsort_rank_crowd(rank, crowd):
@@ -261,22 +247,39 @@ def init_state(problem: Problem, gen: torch.Generator, cfg: NSGA2Config
     return {"pop": pop, "objs": objs}
 
 
-def step_impl(problem: Problem, cfg: NSGA2Config, state, gen: torch.Generator):
-    """One NSGA-II generation: P children, (mu+lambda) truncation."""
+def step_draws(problem: Problem, cfg: NSGA2Config, state, gen: torch.Generator):
+    """Every draw of one generation, in order: tournament a's (ia, ib),
+    tournament b's (ia, ib), each [P], then the variation draws of P
+    children (`_vary_draws`, or `_vary_reduced_draws` for the reduced
+    genotype).  Only the population's shapes are read."""
+    pop, p = state["pop"], cfg.pop_size
+    dev = state["objs"].device
+    tour = tuple(torch.randint(0, p, (p,), generator=gen, device=dev) for _ in range(4))
+    vary = (_vary_reduced_draws(gen, pop, cfg) if cfg.reduced
+            else _vary_draws(gen, pop, cfg))
+    return tour, vary
+
+
+def step_body(problem: Problem, cfg: NSGA2Config, state, tour, vary):
+    """One NSGA-II generation from its draws: P children, (mu+lambda)
+    truncation."""
     pop, objs = state["pop"], state["objs"]
     p = cfg.pop_size
     rank = nondominated_rank(objs, cfg.fused)
     crowd = crowding_distance(objs, rank)
-    pa = _tournament(gen, rank, crowd, p)
-    pb = _tournament(gen, rank, crowd, p)
+    ia_a, ib_a, ia_b, ib_b = tour
+    pa = _tournament_body(rank, crowd, ia_a, ib_a)
+    pb = _tournament_body(rank, crowd, ia_b, ib_b)
 
     def take(idx):
         return G.tree_map(lambda a: a[idx], pop)
 
-    vary = _vary_reduced if cfg.reduced else _vary
-    children = vary(gen, take(pa), take(pb), cfg)
-    cobjs = (_eval_reduced(problem, children, cfg.fused) if cfg.reduced
-             else O.evaluate_population(problem, children, cfg.fused))
+    if cfg.reduced:
+        children = _vary_reduced_body(take(pa), take(pb), vary)
+        cobjs = _eval_reduced(problem, children, cfg.fused)
+    else:
+        children = _vary_body(take(pa), take(pb), vary, cfg)
+        cobjs = O.evaluate_population(problem, children, cfg.fused)
 
     # (mu + lambda) environmental selection on the combined population
     allpop = G.tree_map(lambda a, b: torch.cat([a, b]), pop, children)
@@ -286,6 +289,11 @@ def step_impl(problem: Problem, cfg: NSGA2Config, state, gen: torch.Generator):
     order = _lexsort_rank_crowd(arank, acrowd)[:p]
     return {"pop": G.tree_map(lambda a: a[order], allpop),
             "objs": allobjs[order]}
+
+
+def step_impl(problem: Problem, cfg: NSGA2Config, state, gen: torch.Generator):
+    """One NSGA-II generation drawing from `gen`."""
+    return step_body(problem, cfg, state, *step_draws(problem, cfg, state, gen))
 
 
 step = step_impl

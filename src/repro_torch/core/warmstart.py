@@ -14,8 +14,9 @@ makes a migrated champion the initial state of an algorithm:
     sigma0 * sigma_shrink.  sa: the chain starts at flat(seed).
 
 `jitter == 0` reproduces exact copies; the default 0.15 swaps each
-permutation at probability 0.5.  `member_warm_init`, the pool-level entry,
-waits for the portfolio (ROADMAP.md queue 1 item 8).
+permutation at probability 0.5.  `member_warm_init` is the pool-level
+entry: a member's config rebuilt from its static key and float fields,
+then `warm_state`.
 """
 from __future__ import annotations
 
@@ -151,8 +152,11 @@ def warm_state(problem: Problem, algo: str, cfg, pop: G.Genotype,
     raise KeyError(f"warm start not implemented for algo {algo!r}")
 
 
-def member_warm_init(*args, **kwargs) -> Dict:
-    """The pool-level warm init of the reference needs `hyper.merge_config`
-    and the portfolio's pools."""
-    raise NotImplementedError(
-        "member_warm_init is not ported yet (ROADMAP.md, queue 1 item 8)")
+def member_warm_init(problem: Problem, algo: str, static_key: hyper.StaticKey,
+                     traced: Dict[str, torch.Tensor], pop: G.Genotype,
+                     fresh: torch.Tensor, jitter: torch.Tensor,
+                     sigma_shrink: torch.Tensor, gen: torch.Generator) -> Dict:
+    """One pool member's warm state: its config from `static_key` and its
+    float fields `traced` (0-d fp32), seeded from a `canonicalize` block."""
+    cfg = hyper.merge_config(static_key, traced)
+    return warm_state(problem, algo, cfg, pop, fresh, gen, jitter, sigma_shrink)

@@ -9,6 +9,8 @@ once, one nvcc process each, on the first launch of any kernel.
 
 A `Kernel` is one wrapper's launcher and launch counter: it counts a launch
 only after the C entry point returned cudaSuccess, and raises otherwise.
+The placement kernels' wrappers are `torch.library.custom_op`s whose vmap
+rules fold the mapped axis into the rows of one launch (`vmap_to_front`).
 """
 from __future__ import annotations
 
@@ -110,6 +112,14 @@ def check_inputs(what: str, floats: Sequence[torch.Tensor] = (),
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{what}: index inputs must be int32, got {t.dtype}")
+
+
+def vmap_to_front(t: torch.Tensor, dim: Optional[int], batch_size: int) -> torch.Tensor:
+    """Input `t` of a custom op's vmap rule with the mapped axis `dim` moved
+    to the front; an unmapped input (`dim` None) is expanded along it."""
+    if dim is None:
+        return t.expand(batch_size, *t.shape)
+    return t.movedim(dim, 0)
 
 
 class Kernel:

@@ -2,7 +2,9 @@
 
 Replaces `repro/kernels/fused_eval.py::fused_eval_pallas`.  Source
 `csrc/fused_eval.cu`; plain version `ref.fused_eval_ref`.  Leading batch
-axes (slots x islands x pop) flatten into one launch of one block per row.
+axes (slots x islands x pop) flatten into one launch of one block per row;
+the vmap rule of the custom op `repro_torch::fused_eval` folds the mapped
+axis in the same way.
 """
 from __future__ import annotations
 
@@ -11,17 +13,19 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import Kernel, check_inputs
+from repro_torch.kernels._build import Kernel, check_inputs, vmap_to_front
 
 MAX_SHARED_BYTES = 232448          # what one block may use on sm_90
 KERNEL = Kernel("fused_eval", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5)
 
 
+@torch.library.custom_op("repro_torch::fused_eval", mutates_args=())
 def fused_eval(cx: torch.Tensor, cy: torch.Tensor, src: torch.Tensor,
                dst: torch.Tensor, w: torch.Tensor, uidx: torch.Tensor
                ) -> torch.Tensor:
     """cx, cy [..., G]; src, dst [N] int32; w [N]; uidx [U, B] int32
     -> [..., 2] fp32 = (wirelength^2, max bbox).  CUDA tensors only."""
+    cx, cy = cx.contiguous(), cy.contiguous()
     check_inputs("fused_eval", floats=(cx, cy, w), ints=(src, dst, uidx))
     if cy.shape != cx.shape or cx.dim() < 1:
         raise ValueError(f"fused_eval: cx {tuple(cx.shape)} vs cy {tuple(cy.shape)}")
@@ -42,3 +46,13 @@ def fused_eval(cx: torch.Tensor, cy: torch.Tensor, src: torch.Tensor,
                       uidx.data_ptr(), out.data_ptr(), p, g, src.shape[0],
                       uidx.shape[0], uidx.shape[1])
     return out
+
+
+@fused_eval.register_vmap
+def _fused_eval_vmap(info, in_dims, cx, cy, src, dst, w, uidx):
+    if any(d is not None for d in in_dims[2:]):
+        raise ValueError("fused_eval: src, dst, w and uidx are tables shared by "
+                         "every row; a batch of tables is not taken")
+    b = info.batch_size
+    return fused_eval(vmap_to_front(cx, in_dims[0], b), vmap_to_front(cy, in_dims[1], b),
+                      src, dst, w, uidx), 0

@@ -51,17 +51,19 @@ def fused_eval_ref(bx: torch.Tensor, by: torch.Tensor, src: torch.Tensor,
 
 
 def domination_ref(objs: torch.Tensor) -> torch.Tensor:
-    """objs [P, M] -> bool [P, P]; out[i, j] iff i dominates j (minimise)."""
-    a = objs[:, None, :]
-    b = objs[None, :, :]
+    """objs [..., P, M] -> bool [..., P, P]; out[..., i, j] iff i dominates
+    j (minimise)."""
+    a = objs[..., :, None, :]
+    b = objs[..., None, :, :]
     return torch.all(a <= b, dim=-1) & torch.any(a < b, dim=-1)
 
 
 def domination_counts_ref(objs: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """objs [P, M] -> (bool dom [P, P], int32 dominated-by counts [P])."""
+    """objs [..., P, M] -> (bool dom [..., P, P], int32 dominated-by counts
+    [..., P])."""
     dom = domination_ref(objs)
-    return dom, torch.sum(dom, dim=0, dtype=torch.int32)
+    return dom, torch.sum(dom, dim=-2, dtype=torch.int32)
 
 
 def _scale(d: int) -> float:

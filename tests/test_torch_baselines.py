@@ -244,17 +244,25 @@ def _improves(hist) -> bool:
     return bool(c[-1] < c[0])
 
 
+# the reference tests' budgets: (config, generations or SA steps)
+BUDGETS = {"ga": (TGA.GAConfig(pop_size=16), 25), "cmaes": (TC.CMAESConfig(pop_size=12), 40),
+           "sa": (TA.SAConfig(schedule="hyperbolic"), 400)}
+
+
+def port_run(algo: str, seed: int):
+    """(state, history) of one port run at BUDGETS on the CPU; SA's chain
+    starts from an init drawn with `seed` and steps with `seed + 1`."""
+    cfg, n = BUDGETS[algo]
+    gen = torch.Generator().manual_seed
+    if algo != "sa":
+        return tevolve.run(PORT, algo, cfg, gen(seed), n, device="cpu")
+    chain = TA.run_chain(PORT, cfg, gen(seed + 1), n, TA.init_state(PORT, gen(seed), cfg))
+    return chain["state"], chain["history"]
+
+
 @pytest.fixture(scope="module")
 def port_runs():
-    gen = torch.Generator().manual_seed
-    out = {algo: tevolve.run(PORT, algo, cfg, gen(0), n, device="cpu")
-           for algo, cfg, n in (("ga", TGA.GAConfig(pop_size=16), 25),
-                                ("cmaes", TC.CMAESConfig(pop_size=12), 40))}
-    cfg = TA.SAConfig(schedule="hyperbolic")
-    st0 = TA.init_state(PORT, gen(0), cfg)
-    chain = TA.run_chain(PORT, cfg, gen(1), 400, st0)
-    out["sa"] = (chain["state"], chain["history"])
-    return out
+    return {algo: port_run(algo, 0) for algo in BUDGETS}
 
 
 @pytest.mark.parametrize("algo", ["ga", "cmaes", "sa"])

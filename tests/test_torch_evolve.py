@@ -4,16 +4,21 @@ Bitwise trajectories are not a goal (jax's threefry and torch's Philox
 never agree).  What must hold: a reference population evaluates to the
 same objectives in the port; fused and unfused runs of the port are
 identical for one generator; port champions pass the reference's own
-`validate_placement`; and the port's median final metric is within 1.25x
-of the reference's at the same budget.
+`validate_placement`; and for each of the four algorithms the port's
+median final metric over three seeds is within a factor of the
+reference's at the same budget, from both sides.
 """
 import jax
 import numpy as np
 import pytest
 import torch
 from _kernel_sweeps import tol
+from test_torch_baselines import BUDGETS, port_run
 
+from repro.core import annealing as RA
+from repro.core import cmaes as RC
 from repro.core import evolve as revolve
+from repro.core import ga as RGA
 from repro.core import nsga2 as RN
 from repro.core import objectives as RO
 from repro_torch.core import annealing as TA
@@ -22,9 +27,10 @@ from repro_torch.core import convert
 from repro_torch.core import evolve as tevolve
 from repro_torch.core import ga as TGA
 from repro_torch.core import genotype as TG
+from repro_torch.core import islands as TI
 from repro_torch.core import nsga2 as TN
 from repro_torch.core import objectives as TO
-from repro_torch.core import warmstart as TW
+from repro_torch.core import portfolio as TP
 from repro_torch.fpga import device as tdev
 from repro_torch.fpga import netlist as tnet
 from repro_torch.launch import quickstart
@@ -109,9 +115,41 @@ def test_port_champions_pass_reference_validation(port_runs, small_problem):
         np.testing.assert_array_equal(hist[-1].numpy(), state["objs"][champ].numpy())
 
 
-def test_port_quality_matches_reference(port_runs, ref_final_metrics):
-    port = [float(TO.combined_metric(st["objs"]).min()) for st, _ in port_runs]
-    assert np.median(port) <= 1.25 * np.median(ref_final_metrics), (port, ref_final_metrics)
+# The port's median final metric over the seeds, over the reference's, must
+# lie in QUALITY.  A check of 24 seeds per algorithm at larger budgets found
+# 0.84-1.04 (NSGA-II 0.996, GA 0.843, CMA-ES 0.947, SA 1.037).  At the
+# baselines' budgets here their finals spread more between seeds (SA
+# 1.1e10-3.0e10 over 12 seeds on either side), so that a median of three
+# drifts by chance (seeds 0-2: SA 1.91, CMA-ES 1.30; seeds 0-11: 0.91 and
+# 0.94): they take BASELINE_SEEDS, NSGA-II its three.
+QUALITY = (0.75, 1.25)
+BASELINE_SEEDS = range(8)
+
+
+def _ref_final_metric(problem, algo, seed):
+    cfg, n = BUDGETS[algo]
+    ref_cfg = {"ga": RGA.GAConfig, "cmaes": RC.CMAESConfig, "sa": RA.SAConfig}[algo](**vars(cfg))
+    if algo == "sa":
+        st0 = RA.init_state(problem, jax.random.PRNGKey(seed), ref_cfg)
+        best = RA.run_chain(problem, ref_cfg, jax.random.PRNGKey(seed + 1), n, st0)[
+            "state"]["best_objs"]
+    else:
+        st, _ = revolve.run(problem, algo, ref_cfg, jax.random.PRNGKey(seed), n)
+        best = revolve.state_best_objs(st)
+    return float(RO.combined_metric(best))
+
+
+@pytest.mark.parametrize("algo", ["nsga2", "ga", "cmaes", "sa"])
+def test_port_quality_matches_reference(port_runs, ref_final_metrics, small_problem, algo):
+    if algo == "nsga2":
+        port = [float(TO.combined_metric(st["objs"]).min()) for st, _ in port_runs]
+        ref = ref_final_metrics
+    else:
+        port = [float(TO.combined_metric(tevolve.state_best_objs(port_run(algo, s)[0])))
+                for s in BASELINE_SEEDS]
+        ref = [_ref_final_metric(small_problem, algo, s) for s in BASELINE_SEEDS]
+    ratio = np.median(port) / np.median(ref)
+    assert QUALITY[0] <= ratio <= QUALITY[1], (ratio, port, ref)
 
 
 def test_entry_points_refuse_missing_cuda_and_unported_paths(monkeypatch):
@@ -130,11 +168,11 @@ def test_entry_points_refuse_missing_cuda_and_unported_paths(monkeypatch):
             tevolve.run(PORT, algo, cfg, gen, 1)
     with pytest.raises(KeyError):
         tevolve.get_algo("pso")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         tevolve.run(PORT, "nsga2", TN.NSGA2Config(pop_size=4), gen, 1,
-                    islands=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        TW.member_warm_init()
+                    islands=TI.IslandConfig(2, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TP.run_portfolio(PORT, "nsga2", [TN.NSGA2Config(pop_size=4)], gen=gen, n_gens=1)
 
 
 def test_quickstart_runs_on_cpu(capsys):
