@@ -42,6 +42,18 @@
    rounds of 5, patience 2); islands (P = 4, migrate every 5, 20
    generations) with their launches, P = 1 against `evolve.run` bit for
    bit, and BENCH_placement.json["islands"]'s gens to target on xcvu_test.
+   Then the placement service's slot pool (`serve.placement_service`) at
+   xcvu11p full width: 12 jobs of `make_job_specs` (pop 64, 20
+   generations) through 8 slots at 4 generations per step, unfused and
+   fused, every champion legal and its objectives `O.evaluate`'s; the
+   job with seed 42 alone against the same job in a loaded pool with a
+   co-tenant cancelled; exact launches per step at 1 and 8 active slots
+   (gens_per_step x the per-generation counts) and, unfused, device ops
+   per step;
+   `grow()` 4 -> 8 against a pool that never grows; an islands pool (4
+   slots x P 4) and P = 1 against the plain pool bit for bit;
+   BENCH_placement.json["transfer"] (xcvu_test -> xcvu_test2, cold against
+   warm gens to target); and the `--placement` launcher.
    Then serves yi-6b at full width (fp32, weights from seed 0) through
    `repro_torch.serve.engine.Engine`: 8 requests of 77-2048 prompt tokens
    and 32 new tokens each over 4 slots, with the launch counters set to 0
@@ -104,8 +116,11 @@ FLASH_CASES = ([(b, h, hkv, s, s, d, None, 0.02) for b, h, hkv, s, d in (
 # stores; 256 x 16 tiles up to 256 rows, 64 x 64 tiles and a memset above)
 # and a size past the island batch
 DOM_SIZES = (1, 3, 7, 32, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 2048, 4096)
-# domination's batch axis: B problems of P rows in one launch
-DOM_BATCHES, DOM_BATCH_SIZES = (1, 4, 8), (16, 64, 128)
+# domination's batch axis: B problems of P rows in one launch, at every
+# (B, P) the paths give it: portfolio members and islands (B 4, 8), service
+# pools of 1, 2, 4 and 8 slots and the islands pool's 4 slots x P 4 (B 16),
+# at pop 16 (the transfer and the launcher), 32 and 64 (P = pop and 2 pop)
+DOM_BATCHES, DOM_BATCH_SIZES = (1, 2, 4, 8, 16), (16, 32, 64, 128)
 # the baselines' and the transfer's shapes: SA's 1 row, CMA-ES's lambda = 24
 # (and 25 past it), the GA's 48, and the transfer's 32 and 64 rows, at the
 # xcvu11p width and the xcvu3p / xcvu9p width (gids, nets, units, blocks)
@@ -127,6 +142,15 @@ SA_K_T0, SA_K_STEPS = (0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 4.0, 6.0), 200
 RACE_MAX_GENS, RACE_GENS_PER_ROUND = 40, 5
 ISL_P, ISL_MIGRATE, ISL_GENS, ISL_P1_GENS = 4, 5, 20, 10
 ISL_BENCH_P, ISL_BENCH_POP, ISL_BENCH_MIGRATE, ISL_BENCH_BUDGET = 4, 16, 2, 48
+# the placement service at xcvu11p full width: SVC_JOBS NSGA-II jobs
+# (`make_job_specs`, pop 64) through SVC_SLOTS slots, an islands pool; then
+# BENCH_placement.json["transfer"]'s contract at its own scale on
+# xcvu_test -> xcvu_test2
+SVC_SLOTS, SVC_GENS_PER_STEP, SVC_JOBS, SVC_BUDGET = 8, 4, 12, 20
+SVC_ISL_SLOTS, SVC_ISL_P, SVC_ISL_MIGRATE, SVC_ISL_BUDGET = 4, 4, 4, 12
+SVC_TRANSFER_BASE_POP, SVC_TRANSFER_BASE_GENS = 32, 100
+SVC_TRANSFER_POP, SVC_TRANSFER_BUDGET, SVC_TRANSFER_GENS_PER_STEP = 16, 40, 2
+SVC_TRANSFER_SEEDS = (0, 1, 2, 3)
 SERVE_ARCH = "yi-6b"
 SERVE_PROMPTS = (2048, 1531, 1024, 700, 512, 257, 128, 77)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 2080, 32
@@ -752,6 +776,254 @@ def run_islands_phase(problem, kernels):
     return out, paths
 
 
+# ------------------------------------------------------------ phase 3e
+
+def same_job(what, got, want):
+    """Two harvested jobs of one request: gens exactly, the genotype's
+    integer leaves exactly and its floats and objectives within
+    tol(float32)."""
+    import numpy as np
+    import torch
+
+    if got.gens != want.gens:
+        raise AssertionError(f"{what}: {got.gens} gens against {want.gens}")
+    for a, b in zip(torch.utils._pytree.tree_leaves(got.genotype),
+                    torch.utils._pytree.tree_leaves(want.genotype), strict=True):
+        if np.issubdtype(a.dtype, np.integer):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{what}: an integer leaf of the genotype differs")
+        else:
+            np.testing.assert_allclose(a, b, **tol(torch.float32), err_msg=what)
+    np.testing.assert_allclose(got.best_objs, want.best_objs, **tol(torch.float32),
+                               err_msg=what)
+
+
+def check_job(problem, job, fused: bool):
+    """A harvested champion: legal, and its reported objectives equal
+    `O.evaluate` of the harvested genotype on the card and the plain
+    versions on the CPU, within tol."""
+    import torch
+
+    from repro_torch.core import convert
+    from repro_torch.core import objectives as O
+
+    g = convert.genotype_from_numpy(job.genotype, "cuda")
+    objs = torch.as_tensor(job.best_objs)
+    torch.testing.assert_close(O.evaluate(problem, g, fused).cpu(), objs, **tol(torch.float32))
+    check_champion(problem, g, objs)
+
+
+def per_step(fused: bool, steps: int, submits: int = 0, islands: int = 1):
+    """The launches of `steps` service steps and `submits` admissions:
+    SVC_GENS_PER_STEP x the per-generation counts, and one evaluation per
+    island at each admission."""
+    n, e = steps * SVC_GENS_PER_STEP, submits * islands
+    if fused:
+        return {"fused_eval": n + e, "domination+counts": 2 * n}
+    return {"wirelength2": n + e, "maxbbox": n + e, "domination": 2 * n}
+
+
+def run_service_phase(problem, kernels):
+    """The placement service's slot pool on the card (`serve.placement_service`):
+    (a) rolling admission of SVC_JOBS jobs through SVC_SLOTS slots,
+    unfused and fused; (b) a job alone against the same job beside
+    co-tenants, one of them cancelled; (c) launches per step at 1 and at
+    SVC_SLOTS active slots and device ops per step; (d) `grow()`; (e) an
+    islands pool, and P = 1 against the plain pool bit for bit; (f)
+    BENCH_placement.json["transfer"] through the service; (g) the
+    `--placement` launcher."""
+    import io
+
+    import torch
+
+    from repro_torch.core import nsga2, transfer
+    from repro_torch.core import objectives as O
+    from repro_torch.core.islands import IslandConfig
+    from repro_torch.fpga import device, netlist
+    from repro_torch.launch import serve
+    from repro_torch.serve.api import JobRequest
+    from repro_torch.serve.placement_service import PlacementService, make_job_specs
+
+    out, paths = {}, {}
+
+    def service(fused=False, n_slots=SVC_SLOTS, problem=problem, pop=POP, **kw):
+        kw.setdefault("gens_per_step", SVC_GENS_PER_STEP)
+        return PlacementService(problem, nsga2.NSGA2Config(pop_size=pop, fused=fused),
+                                n_slots=n_slots, device="cuda", **kw)
+
+    # (a) rolling admission
+    part_s, t_part = {}, time.perf_counter()
+    for fused in (False, True):
+        name = f"service_{'fused' if fused else 'unfused'}"
+        svc = service(fused)
+        specs = make_job_specs(SVC_JOBS, POP, SVC_BUDGET, fused=fused)
+        done, dt, launches = counted(kernels, lambda: svc.run_jobs(specs))
+        s = svc.stats()
+        paths[name] = expect_launches(name, launches,
+                                      per_step(fused, s["steps"], submits=SVC_JOBS))
+        if len(done) != SVC_JOBS or s["step_compiles"] != 1:
+            raise AssertionError(f"{name}: {len(done)} jobs, "
+                                 f"{s['step_compiles']} slot counts stepped")
+        for j in done:
+            if j.gens != SVC_BUDGET:
+                raise AssertionError(f"{name}: job {j.jid} ran {j.gens} gens")
+            check_job(problem, j, fused)
+        out[name] = dict(seconds=dt, jobs_per_s=len(done) / dt, gens_per_s=s["useful_gens"] / dt,
+                         ms_per_step=dt / s["steps"] * 1e3, steps=s["steps"],
+                         step_compiles=s["step_compiles"],
+                         best=min(j.metric for j in done),
+                         blocking_compile_secs=s["blocking_compile_secs"])
+    part_s["rolling"] = time.perf_counter() - t_part
+
+    # (b) co-tenancy and cancel: the job alone against the loaded pool
+    t_part = time.perf_counter()
+    spec = JobRequest(seed=42, budget=SVC_BUDGET, cfg=nsga2.NSGA2Config(
+        pop_size=POP, sbx_eta=12.5, real_mut_prob=0.15))
+    (alone,), _, paths["service_alone"] = counted(
+        kernels, lambda: service(n_slots=1).run_jobs([spec]))
+    svc = service()
+    others = [JobRequest(**s) for s in make_job_specs(SVC_SLOTS - 1, POP, SVC_BUDGET, seed=1)]
+    for r in others[:3] + [spec] + others[3:]:
+        svc.submit_request(r)
+    svc.step()
+    if not svc.cancel(0):
+        raise AssertionError("service: cancel of an in-flight job failed")
+    done = svc.run_jobs([])
+    loaded = next(j for j in done if j.seed == 42)
+    same_job("service co-tenancy", loaded, alone)
+    check_job(problem, loaded, False)
+    part_s["cotenancy"] = time.perf_counter() - t_part
+
+    # (c) launches per step at 1 and SVC_SLOTS active slots, and device ops
+    t_part = time.perf_counter()
+    for fused in (False, True):
+        name = f"service_{'fused' if fused else 'unfused'}_occupancy"
+        svc = service(fused)
+        reqs = [JobRequest(**s) for s in make_job_specs(SVC_SLOTS, POP, 64, seed=2, fused=fused)]
+        for n_active, batch in ((1, reqs[:1]), (SVC_SLOTS, reqs[1:])):
+            _, _, sub = counted(kernels, lambda: [svc.submit_request(r) for r in batch])
+            expect_launches(f"{name} submit", sub, per_step(fused, 0, submits=len(batch)))
+            (_, syncs), dts, launches = counted(kernels, lambda: host_syncs(svc.step))
+            paths[f"{name}_{n_active}"] = expect_launches(f"{name} {n_active} active", launches,
+                                                          per_step(fused, 1))
+            out[f"{name}_{n_active}"] = dict(step_ms=dts * 1e3, host_syncs=syncs)
+            if not fused:
+                ms, ops, busy = device_trace(svc.step)
+                out[f"{name}_{n_active}"].update(device_ops_per_step=ops, busy=busy,
+                                                 profiled_step_ms=ms)
+        if len(svc.inflight()) != SVC_SLOTS:
+            raise AssertionError(f"{name}: a job left the pool before its budget")
+    part_s["occupancy"] = time.perf_counter() - t_part
+
+    # (d) grow() mid-run against a pool that never grows
+    t_part = time.perf_counter()
+    reqs = [JobRequest(**s) for s in make_job_specs(4, POP, 2 * SVC_GENS_PER_STEP, seed=3)]
+    never = {j.seed: j for j in service(n_slots=4).run_jobs(reqs)}
+    svc = service(n_slots=4)
+    for r in reqs:
+        svc.submit_request(r)
+    svc.step()
+    svc.grow(SVC_SLOTS)
+    extra = make_job_specs(SVC_SLOTS - 4, POP, 2 * SVC_GENS_PER_STEP, seed=4)
+    done = svc.run_jobs(extra)
+    grown = {j.seed: j for j in done}
+    for seed, j in never.items():
+        same_job(f"service grow, seed {seed}", grown[seed], j)
+    if svc.stats()["sizes"] != [4, SVC_SLOTS] or svc.step_compiles != 2:
+        raise AssertionError(f"service grow: {svc.stats()['sizes']}, "
+                             f"{svc.step_compiles} slot counts stepped")
+    out["grow"] = dict(jobs=len(done), sizes=svc.stats()["sizes"], step_compiles=svc.step_compiles)
+    part_s["grow"] = time.perf_counter() - t_part
+
+    # (e) islands: SVC_ISL_SLOTS slots x P islands, then P = 1 against the plain pool
+    t_part = time.perf_counter()
+    icfg = IslandConfig(SVC_ISL_P, SVC_ISL_MIGRATE)
+    svc = service(n_slots=SVC_ISL_SLOTS, islands=icfg)
+    reqs = [JobRequest(islands=icfg, **s)
+            for s in make_job_specs(SVC_ISL_SLOTS, POP, SVC_ISL_BUDGET, seed=5)]
+    _, _, sub = counted(kernels, lambda: [svc.submit_request(r) for r in reqs])
+    expect_launches("service islands submit", sub,
+                    per_step(False, 0, submits=len(reqs), islands=SVC_ISL_P))
+    syncs, done = [], []
+
+    def islands_run():
+        while svc.active.any():
+            finished, n = host_syncs(svc.step)
+            syncs.append(n)
+            done.extend(finished)
+
+    _, dt, launches = counted(kernels, islands_run)
+    steps = SVC_ISL_BUDGET // SVC_GENS_PER_STEP
+    paths["service_islands"] = expect_launches("service islands", launches, per_step(False, steps))
+    if len(done) != SVC_ISL_SLOTS or len(syncs) != steps:
+        raise AssertionError(f"service islands: {len(done)} jobs in {len(syncs)} steps")
+    for j in done:
+        check_job(problem, j, False)
+    # host syncs of the steps that harvested nothing (a harvest reads back);
+    # then the same jobs again, to trace two of their steps
+    for r in reqs:
+        svc.submit_request(r.replace(budget=4 * SVC_GENS_PER_STEP))
+    ms, ops, busy = device_trace(svc.step)
+    out["islands"] = dict(ms_per_step=dt / steps * 1e3, jobs=len(done), seconds=dt,
+                          best=min(j.metric for j in done), step_compiles=svc.step_compiles,
+                          host_syncs=syncs[:-1], profiled_step_ms=ms, device_ops_per_step=ops,
+                          busy=busy)
+    reqs = [JobRequest(**s) for s in make_job_specs(2, POP, 2 * SVC_GENS_PER_STEP, seed=6)]
+    plain = {j.seed: j for j in service(n_slots=2).run_jobs(reqs)}
+    one = IslandConfig(1, SVC_ISL_MIGRATE)
+    p1 = {j.seed: j for j in service(n_slots=2, islands=one).run_jobs(
+        [r.replace(islands=one) for r in reqs])}
+    for seed, j in plain.items():
+        leaves = zip(torch.utils._pytree.tree_leaves(p1[seed].genotype),
+                     torch.utils._pytree.tree_leaves(j.genotype), strict=True)
+        if not all((a == b).all() for a, b in leaves) or not (p1[seed].best_objs
+                                                              == j.best_objs).all():
+            raise AssertionError(f"service islands(P=1) differs from the plain pool, seed {seed}")
+    part_s["islands"] = time.perf_counter() - t_part
+
+    # (f) BENCH_placement.json["transfer"] at its own scale, through the service
+    t_part = time.perf_counter()
+    base = netlist.make_problem(device.get_device("xcvu_test"))
+    sib = netlist.make_problem(device.get_device("xcvu_test2"))
+    t0 = time.perf_counter()
+    champ = transfer.converge_champion(base, torch.Generator(device="cuda").manual_seed(0),
+                                       SVC_TRANSFER_BASE_POP, SVC_TRANSFER_BASE_GENS)
+    g_mig = transfer.migrate(base, sib, champ)
+    target = float(O.combined_metric(O.evaluate(sib, g_mig)))
+    converge_s = time.perf_counter() - t0
+    svc = service(n_slots=2 * len(SVC_TRANSFER_SEEDS), problem=sib, pop=SVC_TRANSFER_POP,
+                  gens_per_step=SVC_TRANSFER_GENS_PER_STEP)
+    reqs = [JobRequest(seed=s, budget=SVC_TRANSFER_BUDGET, target=target, init_state=init)
+            for init in (None, g_mig) for s in SVC_TRANSFER_SEEDS]
+    done, dt, paths["service_transfer"] = counted(kernels, lambda: svc.run_jobs(reqs))
+    cold = {j.seed: j.gens if j.metric <= target else None for j in done if not j.warm}
+    warm = {j.seed: j.gens if j.metric <= target else None for j in done if j.warm}
+    if any(warm[s] is None for s in SVC_TRANSFER_SEEDS):
+        raise AssertionError(f"service transfer: a warm job missed its own seed's metric {warm}")
+    out["transfer"] = dict(target=target, cold=cold, warm=warm, converge_s=converge_s,
+                           seconds=dt)
+    part_s["transfer"] = time.perf_counter() - t_part
+
+    # (g) the launcher
+    t_part = time.perf_counter()
+    text = io.StringIO()
+
+    def launch():
+        with contextlib.redirect_stdout(text):
+            serve.main(["--placement", "--device", "xcvu_test", "--requests", "4",
+                        "--slots", "2", "--pop", "16", "--gens", "8"])
+
+    _, dt, paths["service_launcher"] = counted(kernels, launch)
+    lines = text.getvalue().strip().splitlines()
+    if (len(lines) != 5 or [ln.split(":")[0] for ln in lines[:4]] != [f"job{i}" for i in range(4)]
+            or not lines[-1].endswith("step compiles: 1")):
+        raise AssertionError(f"launcher output:\n{text.getvalue()}")
+    out["launcher"] = dict(seconds=dt, last_line=lines[-1])
+    part_s["launcher"] = time.perf_counter() - t_part
+    out["part_s"] = part_s
+    return out, paths
+
+
 # ------------------------------------------------------------ phase 4
 
 def time_ms(fn, iters=200) -> float:
@@ -973,6 +1245,46 @@ def profiled(fn, reps: int):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     return wall_us, len(kernels) / reps, (busy_us / wall_us if kernels else None), prof
+
+
+def host_syncs(fn):
+    """(fn(), the calls in it that made the host wait on the card), counted
+    by torch's CUDA sync debug mode: reads back, and copies from pageable
+    host memory."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def device_trace(fn):
+    """One call of `fn` (after one untraced call) under a CUDA-only
+    torch.profiler trace: (host-clock ms, device ops, the device's busy
+    share).  Left out of the trace, the CPU ops (~16,000 in a service step)
+    add nothing to the trace's read-back and slow the host less, so the
+    busy share reads higher than `profiled`'s."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    return wall_us / 1e3, len(kernels), (busy_us / wall_us if kernels else None)
 
 
 def generation_profile(problem):
@@ -1361,6 +1673,46 @@ def main() -> int:
           f"{ISL_BENCH_BUDGET} run in {v['islands_s']:.3f} s); best combined single after "
           f"{ISL_BENCH_BUDGET} gens {v['single_best']:.4e}, islands after {v['islands_budget']} "
           f"{v['islands_best_at_budget']:.4e} and after {ISL_BENCH_BUDGET} {v['islands_best']:.4e}")
+    print(f"[{time.perf_counter() - start:.1f} s] placement service: {SVC_JOBS} jobs x "
+          f"{SVC_BUDGET} gens over {SVC_SLOTS} slots, {SVC_GENS_PER_STEP} gens per step")
+    t0 = time.perf_counter()
+    svc, paths = run_service_phase(problem, kernels)
+    by_path.update(paths)
+    for name in ("service_unfused", "service_fused"):
+        v = svc[name]
+        print(f"  {name}: {SVC_JOBS} jobs in {v['seconds']:.3f} s, {v['jobs_per_s']:.3f} jobs/s, "
+              f"{v['gens_per_s']:.2f} active-slot gens/s, {v['ms_per_step']:.3f} ms per step "
+              f"({v['steps']} steps); step compiles {v['step_compiles']}; blocking build "
+              f"{v['blocking_compile_secs']} s; best combined {v['best']:.4e}; "
+              f"launches {by_path[name]}")
+        for n in (1, SVC_SLOTS):
+            o = svc[f"{name}_occupancy_{n}"]
+            prof = (f", under a CUDA-only trace {o['profiled_step_ms']:.3f} ms, "
+                    f"{o['device_ops_per_step']:.0f} device ops per step, device busy {o['busy']}"
+                    if "busy" in o else "")
+            print(f"    {n} active: launches per step {by_path[f'{name}_occupancy_{n}']}; "
+                  f"step {o['step_ms']:.3f} ms, host syncs {o['host_syncs']}{prof}")
+    print(f"  co-tenancy: seed 42 alone == beside {SVC_SLOTS - 1} co-tenants, one cancelled "
+          f"(integers exactly, floats within tol): True")
+    v = svc["grow"]
+    print(f"  grow 4 -> {SVC_SLOTS}: sizes {v['sizes']}, step compiles {v['step_compiles']}; "
+          f"the in-flight jobs equal a never-grown pool's: True")
+    v = svc["islands"]
+    print(f"  islands {SVC_ISL_SLOTS} slots x P {SVC_ISL_P} (migrate every {SVC_ISL_MIGRATE}), "
+          f"{SVC_ISL_SLOTS} jobs x {SVC_ISL_BUDGET} gens: {v['ms_per_step']:.3f} ms per step, "
+          f"host syncs per step before the harvest {v['host_syncs']}, "
+          f"under a CUDA-only trace {v['profiled_step_ms']:.3f} ms, "
+          f"{v['device_ops_per_step']:.0f} device ops per step, device busy {v['busy']}; "
+          f"launches {by_path['service_islands']}; best combined {v['best']:.4e}; "
+          f"islands(P=1) == the plain pool bit for bit: True")
+    v = svc["transfer"]
+    print(f"  BENCH transfer xcvu_test -> xcvu_test2 (base pop {SVC_TRANSFER_BASE_POP} x "
+          f"{SVC_TRANSFER_BASE_GENS} gens in {v['converge_s']:.3f} s; pop {SVC_TRANSFER_POP}, "
+          f"budget {SVC_TRANSFER_BUDGET}, {SVC_TRANSFER_GENS_PER_STEP} gens per step): target "
+          f"{v['target']:.4e}; gens to target by seed (None: not reached) cold {v['cold']}, "
+          f"warm {v['warm']}; {v['seconds']:.3f} s")
+    print(f"  launcher: {svc['launcher']['last_line']} ({svc['launcher']['seconds']:.3f} s); "
+          f"the phase {time.perf_counter() - t0:.1f} s, by part (s) {svc['part_s']}")
     print(f"[{time.perf_counter() - start:.1f} s] serving")
 
     # the serving path at full width: every prefill attention layer runs

@@ -13,7 +13,8 @@ per generation whatever P is.
   * `member_init` / `member_round` / `member_warm_init` -- one slot's
     island-stacked states ``[P, ...]``, mirroring `core.portfolio` and
     `core.warmstart`.  Warm seeds land on island 0 and reach the others
-    through migration.
+    through migration.  `pool_round` advances S such slots as one batch
+    (the placement service's islands pools).
   * `run` -- the full-run entry (`evolve.run(islands=...)` dispatches here).
 
 Each island draws from its own `torch.Generator` (`island_generators`):
@@ -221,6 +222,47 @@ def member_warm_init(problem: Problem, algo: str, static_key: hyper.StaticKey,
     warm0 = warmstart.warm_state(problem, algo, cfg, pop, fresh, gens[0], jitter,
                                  sigma_shrink)
     return portfolio.stack([warm0] + [m.init_state(problem, g, cfg) for g in gens[1:]])
+
+
+def pool_round(problem: Problem, algo: str, static_key: hyper.StaticKey,
+               icfg: IslandConfig, n_gens: int, traced: Dict[str, torch.Tensor],
+               states: Dict, gens: Sequence[Sequence[torch.Generator]],
+               g0: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+    """Advance S slots of island-stacked states ``[S, P, ...]`` `n_gens`
+    generations as one batch of S * P members, so that every kernel
+    launches once per generation whatever S and P are.
+
+    Slot s has its float fields ``traced[k][s]``, its islands'
+    generators ``gens[s]`` and its own global generation count ``g0[s]``
+    (an int tensor [S]); migration is computed every generation and kept
+    where due, the tensor form of `round_impl`.  Slot s computes what
+    ``member_round(..., {k: traced[k][s]}, states[s], gens[s], g0[s])``
+    computes alone.  Returns (states, each slot's best objectives across
+    its islands [S, 2]).
+    """
+    s, p = len(gens), icfg.n_islands
+    for slot_gens in gens:
+        _check_islands(icfg, slot_gens)
+    flat_traced = {n: v[:, None].expand(s, p).reshape(s * p) for n, v in traced.items()}
+    flat_gens = [g for slot_gens in gens for g in slot_gens]
+    cfgs = [hyper.unstack_config(static_key, flat_traced, i) for i in range(s * p)]
+
+    def unflatten(st):
+        return G.tree_map(lambda a: a.unflatten(0, (s, p)), st)
+
+    flat = G.tree_map(lambda a: a.flatten(0, 1), states)
+    g = g0
+    for _ in range(n_gens):
+        flat = portfolio.batched_step(problem, algo, static_key, flat_traced, cfgs, flat, flat_gens)
+        g = g + 1
+        if icfg.migrate_every > 0:
+            st = unflatten(flat)
+            do = (g % icfg.migrate_every) == 0
+            st = G.tree_map(lambda a, b: torch.where(do.reshape(-1, *[1] * (a.dim() - 1)), b, a),
+                            st, torch.func.vmap(migrate_ring)(st))
+            flat = G.tree_map(lambda a: a.flatten(0, 1), st)
+    states = unflatten(flat)
+    return states, torch.func.vmap(best_over_islands)(states)
 
 
 def _check_islands(icfg: IslandConfig, gens: Sequence[torch.Generator]) -> None:

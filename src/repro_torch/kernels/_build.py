@@ -20,10 +20,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 import torch
+
+from repro_torch.runtime import compile_cache
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -55,10 +58,13 @@ def build() -> Dict[str, str]:
     """Compile every library not yet built, all nvcc processes at once.
 
     Returns {name: compiler output} for the libraries built by this call
-    (ptxas reports registers, shared memory and spills per kernel).
-    Raises RuntimeError naming every source that failed.
+    (ptxas reports registers, shared memory and spills per kernel), and
+    reports them with the call's wall seconds to the compile meter
+    (`runtime.compile_cache`).  Raises RuntimeError naming every source
+    that failed.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     jobs = []
     for name in NAMES:
         out = library_path(name)
@@ -78,6 +84,8 @@ def build() -> Dict[str, str]:
         else:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+    if jobs:
+        compile_cache.meter().record(len(jobs), time.perf_counter() - t0)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs

@@ -163,11 +163,13 @@ def test_launcher_on_cpu_prints_one_line_per_request():
 def test_launcher_guards():
     if torch.cuda.is_available():
         pytest.skip("a card is present, so the default device does not raise")
-    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
-        serve.main(["--arch", "yi-6b", "--reduced"])
-    for flag, item in (("--placement", "item 9"), ("--dry-run", "item 11")):
+    for argv in (["--arch", "yi-6b", "--reduced"], ["--placement"]):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            serve.main(argv)
+    for argv, item in ((["--placement", "--frontend"], "item 9b"),
+                       (["--arch", "yi-6b", "--dry-run"], "item 11")):
         with pytest.raises(NotImplementedError, match=item):
-            serve.main(["--arch", "yi-6b", flag])
+            serve.main(argv)
 
 
 @pytest.mark.parametrize("name", ["jamba-v0.1-52b", "deepseek-moe-16b",

@@ -2,7 +2,9 @@
 
 The port keeps its own copies of `fpga/device.py` and `fpga/netlist.py`;
 every array, scalar and content hash must agree with the reference byte
-for byte.  Nothing in `src/repro_torch/` or `chip_smoke.py` may import JAX
+for byte.  Its copies of the reference's stdlib-only serving modules equal
+the reference's files, but for the lines that import the reference
+package, which import the port's module of the same name.  Nothing in `src/repro_torch/` or `chip_smoke.py` may import JAX
 or the reference package.
 """
 import ast
@@ -71,3 +73,19 @@ def test_port_imports_neither_jax_nor_reference(rel):
     bad = [m for m in _imported_modules(ROOT / rel)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{rel} imports {bad}"
+
+
+# port copy -> the number of its lines that import the reference package
+COPIES = {"runtime/telemetry.py": 1, "serve/tracing.py": 0, "serve/api.py": 3}
+
+
+@pytest.mark.parametrize("rel", sorted(COPIES))
+def test_copied_modules_equal_the_reference(rel):
+    ref = (ROOT / "src" / "repro" / rel).read_text().splitlines(keepends=True)
+    port = (ROOT / "src" / "repro_torch" / rel).read_text().splitlines(keepends=True)
+    assert len(port) == len(ref)
+    differ = [(a, b) for a, b in zip(ref, port) if a != b]
+    assert len(differ) == COPIES[rel]
+    for a, b in differ:
+        assert a.lstrip().startswith("from repro.")
+        assert b == a.replace("from repro.", "from repro_torch.", 1)
