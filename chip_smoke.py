@@ -54,6 +54,20 @@
    slots x P 4) and P = 1 against the plain pool bit for bit;
    BENCH_placement.json["transfer"] (xcvu_test -> xcvu_test2, cold against
    warm gens to target); and the `--placement` launcher.
+   Then the control plane (`serve.scheduler`, `serve.champion_store`,
+   `serve.prewarm`, `serve.frontend`) at xcvu11p full width, 4-slot pools
+   at 4 generations per step: 12 NSGA-II and 4 GA jobs routed to two
+   pools, every champion legal, one job of each against a standalone pool;
+   the same jobs under the deadline policy (the urgent job finishes in
+   fewer scheduler steps, every result unchanged); autoscaling 4 -> 8 ->
+   16 slots on a queue of 16 jobs with exact launches per step; Table II's
+   xcvu3p champion in a champion store seeding xcvu9p jobs (gens to the
+   migrated metric, warm against cold), a second wave answered from the
+   cache, save/load; a store-predicted pool prewarmed off-thread and
+   adopted, the first step after a grow with and without `prewarm_grow`,
+   and a second process that finds every kernel library built; 16 asyncio
+   clients through the front-end, one cancelled, against a sequential
+   scheduler; and the launcher with every control-plane flag.
    Then serves yi-6b at full width (fp32, weights from seed 0) through
    `repro_torch.serve.engine.Engine`: 8 requests of 77-2048 prompt tokens
    and 32 new tokens each over 4 slots, with the launch counters set to 0
@@ -119,8 +133,9 @@ DOM_SIZES = (1, 3, 7, 32, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 2048, 4
 # domination's batch axis: B problems of P rows in one launch, at every
 # (B, P) the paths give it: portfolio members and islands (B 4, 8), service
 # pools of 1, 2, 4 and 8 slots and the islands pool's 4 slots x P 4 (B 16),
-# at pop 16 (the transfer and the launcher), 32 and 64 (P = pop and 2 pop)
-DOM_BATCHES, DOM_BATCH_SIZES = (1, 2, 4, 8, 16), (16, 32, 64, 128)
+# the control plane's ladder (4, 8, 16) and its prewarmed grow (B 12), at
+# pop 16 (the transfer and the launchers), 32 and 64 (P = pop and 2 pop)
+DOM_BATCHES, DOM_BATCH_SIZES = (1, 2, 4, 8, 12, 16), (16, 32, 64, 128)
 # the baselines' and the transfer's shapes: SA's 1 row, CMA-ES's lambda = 24
 # (and 25 past it), the GA's 48, and the transfer's 32 and 64 rows, at the
 # xcvu11p width and the xcvu3p / xcvu9p width (gids, nets, units, blocks)
@@ -151,6 +166,16 @@ SVC_ISL_SLOTS, SVC_ISL_P, SVC_ISL_MIGRATE, SVC_ISL_BUDGET = 4, 4, 4, 12
 SVC_TRANSFER_BASE_POP, SVC_TRANSFER_BASE_GENS = 32, 100
 SVC_TRANSFER_POP, SVC_TRANSFER_BUDGET, SVC_TRANSFER_GENS_PER_STEP = 16, 40, 2
 SVC_TRANSFER_SEEDS = (0, 1, 2, 3)
+# the control plane at xcvu11p full width: schedulers of CP_SLOTS-slot pools
+# at CP_GENS_PER_STEP; CP_NSGA_JOBS NSGA-II (pop 64) and CP_GA_JOBS GA jobs;
+# autoscaling CP_SLOTS -> CP_MAX_SLOTS on a queue of CP_AUTOSCALE_JOBS; Table
+# II's xcvu3p champion in a champion store, xcvu9p jobs at Table II's pop
+# and budget; a prewarmed grow to CP_PREWARM_SLOTS; the asyncio front-end
+CP_SLOTS, CP_GENS_PER_STEP, CP_BUDGET = 4, 4, 12
+CP_NSGA_JOBS, CP_GA_JOBS, CP_GA_POP = 12, 4, 48
+CP_AUTOSCALE_JOBS, CP_AUTOSCALE_THRESHOLD, CP_MAX_SLOTS = 16, 4, 16
+CP_STORE_SEEDS, CP_PREWARM_SLOTS = (0, 1, 2, 3), 12
+CP_FE_CLIENTS, CP_FE_QUEUE, CP_FE_BUDGET, CP_FE_CANCEL = 16, 8, 12, 5
 SERVE_ARCH = "yi-6b"
 SERVE_PROMPTS = (2048, 1531, 1024, 700, 512, 257, 128, 77)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 2080, 32
@@ -574,7 +599,8 @@ def run_table2(kernels):
                mhz_scratch=pipelining.frequency_at_depth(dst, runs["scratch"]["g"], 1),
                mhz_transfer=pipelining.frequency_at_depth(dst, runs["warm"]["g"], 1),
                first_scratch=scratch_first, first_warm=warm_first, target=target,
-               seconds={k: v["seconds"] for k, v in runs.items()})
+               seconds={k: v["seconds"] for k, v in runs.items()},
+               seed_champion=(runs["seed"]["g"], runs["seed"]["objs"]))
     return row, paths
 
 
@@ -1022,6 +1048,407 @@ def run_service_phase(problem, kernels):
     part_s["launcher"] = time.perf_counter() - t_part
     out["part_s"] = part_s
     return out, paths
+
+
+# ------------------------------------------------------------ phase 3f
+
+def cp_launches(nsga_steps: int, evals: int, ga_steps: int = 0):
+    """The launches of scheduler steps on unfused pools: CP_GENS_PER_STEP x
+    the per-generation counts (NSGA-II: one evaluation, two domination
+    sorts; GA: one evaluation), plus `evals` single-genotype-population
+    evaluations (one per slot a fill or a grow initialises, one per job
+    admitted)."""
+    n = CP_GENS_PER_STEP
+    e = n * (nsga_steps + ga_steps) + evals
+    return {"wirelength2": e, "maxbbox": e, "domination": 2 * n * nsga_steps}
+
+
+def drive(sch):
+    """Step a scheduler dry on this thread; returns ({jid: fleet job},
+    {jid: scheduler steps until it finished}, {pool label: [ms per step]})."""
+    import torch
+
+    done, finished_at, ms = {}, {}, {}
+    n = 0
+    while sch.busy:
+        before = {sch._label(k): p.total_steps for k, p in sch._pools.items()}
+        t0 = time.perf_counter()
+        finished = sch.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        n += 1
+        for k, p in sch._pools.items():
+            if p.total_steps != before.get(sch._label(k), 0):
+                ms.setdefault(sch._label(k), []).append(dt)
+        for j in finished:
+            done[j.jid], finished_at[j.jid] = j, n
+    return done, finished_at, ms
+
+
+def trimmed(stats):
+    """A stats payload without its histograms and convergence tails."""
+    if isinstance(stats, dict):
+        return {k: trimmed(v) for k, v in stats.items()
+                if not k.endswith("_hist") and k != "convergence"}
+    return stats
+
+
+CACHE_CHILD = r"""
+import json, sys
+import torch
+sys.path.insert(0, "src")
+from repro_torch.runtime import compile_cache
+compile_cache.enable(sys.argv[1])
+from repro_torch.kernels import bbox, domination, flash_attention, fused_eval, ops, wirelength
+dev = "cuda"
+x, w = torch.rand(2, 8, device=dev), torch.ones(8, device=dev)
+ops.wirelength2(x, x, x, x, w)
+ops.maxbbox(torch.rand(2, 3, 4, device=dev), torch.rand(2, 3, 4, device=dev))
+objs = torch.rand(16, 2, device=dev)
+ops.domination_matrix(objs)
+ops.fused_domination_counts(objs)
+bx, idx = torch.rand(2, 12, device=dev), torch.arange(8, dtype=torch.int32, device=dev)
+uidx = torch.arange(12, dtype=torch.int32, device=dev).reshape(3, 4)
+ops.fused_eval(bx, bx, idx, idx + 1, w, uidx)
+q = torch.rand(1, 2, 64, 64, device=dev)
+ops.flash_attention(q, q, q)
+torch.cuda.synchronize()
+print(json.dumps({"meter": compile_cache.meter().stats(), "launches": {
+    k.name + ("+counts" if k is domination.KERNEL_COUNTS else ""): k.launches
+    for k in (bbox.KERNEL, domination.KERNEL, domination.KERNEL_COUNTS, flash_attention.KERNEL,
+              fused_eval.KERNEL, wirelength.KERNEL)}}))
+"""
+
+
+def run_control_plane_phase(problem, kernels, table2_champion, first_build):
+    """The placement control plane on the card (`serve.scheduler`,
+    `serve.champion_store`, `serve.prewarm`, `serve.frontend`), at xcvu11p
+    full width unless a part says otherwise: (a) routing of NSGA-II and GA
+    jobs to two pools, stepped round-robin, against standalone pools; (b)
+    the deadline policy; (c) autoscaling on queue depth; (d) Table II
+    through the scheduler and a champion store, and cache hits; (e) a
+    prewarmed pool, a prewarmed grow and the kernel build cache in a
+    second process; (f) the asyncio front-end; (g) the launcher."""
+    import asyncio
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ga, nsga2, transfer
+    from repro_torch.core import objectives as O
+    from repro_torch.fpga import device, netlist
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.runtime import compile_cache
+    from repro_torch.serve.api import JobRequest, JobStatus
+    from repro_torch.serve.champion_store import ChampionStore
+    from repro_torch.serve.frontend import PlacementFrontend
+    from repro_torch.serve.placement_service import PlacementService, make_job_specs
+    from repro_torch.serve.prewarm import Prewarmer
+    from repro_torch.serve.scheduler import PlacementScheduler
+
+    out, paths, part_s = {}, {}, {}
+    tmpdir = tempfile.TemporaryDirectory()
+
+    def scheduler(**kw):
+        kw.setdefault("n_slots", CP_SLOTS)
+        return PlacementScheduler(gens_per_step=CP_GENS_PER_STEP, device="cuda", **kw)
+
+    def standalone(r, problem=problem, n_slots=CP_SLOTS):
+        svc = PlacementService(problem, r.cfg, algo=r.algo or "nsga2", n_slots=n_slots,
+                               gens_per_step=CP_GENS_PER_STEP, device="cuda")
+        (job,) = svc.run_jobs([r.replace(device=None, deadline=None, priority=0.0)])
+        return job
+
+    nsga_reqs = [JobRequest(device=FPGA_DEVICE, **s)
+                 for s in make_job_specs(CP_NSGA_JOBS, POP, CP_BUDGET, seed=7)]
+    ga_reqs = [JobRequest(device=FPGA_DEVICE, algo="ga", seed=700 + i, budget=CP_BUDGET,
+                          cfg=ga.GAConfig(pop_size=CP_GA_POP, real_mut_prob=0.1 + 0.05 * i))
+               for i in range(CP_GA_JOBS)]
+    reqs = nsga_reqs + ga_reqs
+
+    # (a) routing: two pools stepped round-robin
+    t_part = time.perf_counter()
+    sch = scheduler()
+
+    def route():
+        jids = [sch.submit_request(r) for r in reqs]
+        return jids, drive(sch)
+
+    (jids, (done, finished_at, ms)), dt, launches = counted(kernels, route)
+    stats = sch.stats()
+    pools = {label: p["steps"] for label, p in stats["pools"].items()}
+    if len(done) != len(reqs) or stats["n_pools"] != 2:
+        raise AssertionError(f"control plane: {len(done)} jobs in {stats['n_pools']} pools")
+    nsga_steps, ga_steps = (next(n for label, n in pools.items() if f"/{algo}/" in label)
+                            for algo in ("nsga2", "ga"))
+    paths["control_plane_routing"] = expect_launches(
+        "control plane routing", launches,
+        cp_launches(nsga_steps, 2 * CP_SLOTS + len(reqs), ga_steps))
+    for jid in jids:
+        if done[jid].result.gens != CP_BUDGET:
+            raise AssertionError(f"control plane: job {jid} ran {done[jid].result.gens} gens")
+        check_job(problem, done[jid].result, False)
+    for i in (0, CP_NSGA_JOBS):                  # one NSGA-II job and one GA job
+        same_job(f"control plane job {i} against a standalone pool",
+                 done[jids[i]].result, standalone(reqs[i]))
+    rr = {jid: done[jid] for jid in jids}
+    out["routing"] = dict(jobs=len(done), seconds=dt, jobs_per_s=len(done) / dt,
+                          steps=sum(len(v) for v in ms.values()),
+                          ms_per_step={k: float(np.mean(v)) for k, v in ms.items()},
+                          steps_per_pool=pools, stats=trimmed(stats))
+    part_s["routing"] = time.perf_counter() - t_part
+
+    # (b) the deadline policy: one tight deadline on the last NSGA-II job
+    t_part = time.perf_counter()
+    urgent = CP_NSGA_JOBS - 1
+    sch = scheduler(policy="deadline")
+    jids_b = [sch.submit_request(r.replace(deadline=1.0) if i == urgent else r)
+              for i, r in enumerate(reqs)]
+    done_b, finished_b, _ = drive(sch)
+    steps_rr, steps_edf = finished_at[jids[urgent]], finished_b[jids_b[urgent]]
+    if not steps_edf < steps_rr:
+        raise AssertionError(f"deadline policy: the urgent job took {steps_edf} scheduler "
+                             f"steps, round-robin {steps_rr}")
+    for a, b in zip(jids, jids_b):
+        same_job(f"deadline policy, job {a}", done_b[b].result, rr[a].result)
+    out["policy"] = dict(urgent_steps_deadline=steps_edf, urgent_steps_round_robin=steps_rr,
+                         total_steps_deadline=max(finished_b.values()),
+                         total_steps_round_robin=max(finished_at.values()))
+    part_s["policy"] = time.perf_counter() - t_part
+
+    # (c) autoscaling on queue depth: CP_SLOTS -> 2 CP_SLOTS -> CP_MAX_SLOTS
+    t_part = time.perf_counter()
+    sch = scheduler(autoscale=True, autoscale_threshold=CP_AUTOSCALE_THRESHOLD,
+                    max_slots=CP_MAX_SLOTS)
+    a_reqs = [JobRequest(device=FPGA_DEVICE, **s)
+              for s in make_job_specs(CP_AUTOSCALE_JOBS, POP, CP_BUDGET, seed=8)]
+    (a_jids, _, sub) = counted(kernels, lambda: [sch.submit_request(r) for r in a_reqs])
+    expect_launches("autoscale submit", sub, cp_launches(0, 2 * CP_SLOTS))
+    (pool,) = sch._pools.values()
+    done_c, per_step_launches = {}, []
+    while sch.busy:
+        n_slots, admitted = pool.n_slots, len(sch._inflight)
+        finished, _, launches = counted(kernels, sch.step)
+        grown = pool.n_slots - n_slots
+        admitted = len(sch._inflight) + len(finished) - admitted
+        expect_launches(f"autoscale step at {pool.n_slots} slots", launches,
+                        cp_launches(1, grown + admitted))
+        per_step_launches.append((pool.n_slots, launches))
+        done_c.update((j.jid, j) for j in finished)
+    events = [(old, new) for _, old, new in sch.autoscale_events]
+    if events != [(CP_SLOTS, 2 * CP_SLOTS), (2 * CP_SLOTS, CP_MAX_SLOTS)]:
+        raise AssertionError(f"autoscale events {sch.autoscale_events}")
+    for i in (0, CP_AUTOSCALE_JOBS - 1):         # admitted at 4 slots, and at 16
+        same_job(f"autoscaled job {i}", done_c[a_jids[i]].result, standalone(a_reqs[i]))
+    paths["control_plane_autoscale"] = {
+        n: sum(c[n] for _, c in per_step_launches) + sub[n] for n in sub}
+    out["autoscale"] = dict(events=sch.autoscale_events, sizes=pool.stats()["sizes"],
+                            steps=len(per_step_launches),
+                            launches_per_step=[(n, {k: v for k, v in c.items() if v})
+                                               for n, c in per_step_launches])
+    part_s["autoscale"] = time.perf_counter() - t_part
+
+    # (d) Table II through the scheduler: the xcvu3p champion in a store
+    t_part = time.perf_counter()
+    src, dst = (netlist.make_problem(device.get_device(n)) for n in (TRANSFER_SRC, TRANSFER_DST))
+    g_src, objs_src = table2_champion
+    store = ChampionStore()
+    store.put(src, g_src, float(O.combined_metric(objs_src)), objs_src,
+              provenance={"source": "table2", "algo": "nsga2"})
+    target = float(O.combined_metric(O.evaluate(dst, transfer.migrate(src, dst, g_src))))
+    t_reqs = [JobRequest(device=TRANSFER_DST, cfg=nsga2.NSGA2Config(pop_size=TRANSFER_POP),
+                         seed=s, budget=TRANSFER_GENS, target=target) for s in CP_STORE_SEEDS]
+    gens_to_target, t_done = {}, {}
+    for name, st in (("cold", None), ("warm", store)):
+        sch = scheduler(store=st)
+        jids_d = [sch.submit_request(r) for r in t_reqs]
+        done_d, _, ms_d = drive(sch)
+        t_done[name] = done_d
+        if any(done_d[j].warm_from_cache != (name == "warm") for j in jids_d):
+            raise AssertionError(f"store: {name} jobs' warm_from_cache is wrong")
+        for j in jids_d:
+            check_job(dst, done_d[j].result, False)
+        gens_to_target[name] = [done_d[j].result.gens if done_d[j].result.metric <= target
+                                else None for j in jids_d]
+    if any(g is None for g in gens_to_target["warm"]):
+        raise AssertionError(f"store: a warm job missed the migrated metric {gens_to_target}")
+    stored = store.get(dst.signature)
+    if stored is None:
+        raise AssertionError("store: no xcvu9p champion was written back")
+    steps_before = sum(p.total_steps for p in sch._pools.values())
+    hits, _, hit_launches = counted(kernels, lambda: run_cached(sch, t_reqs, stored.metric))
+    if (not all(j.cached and j.result.gens == 0 for j in hits)
+            or sum(p.total_steps for p in sch._pools.values()) != steps_before
+            or any(hit_launches.values())):
+        raise AssertionError("store: the second wave was not answered from the cache")
+    path = store.save(str(Path(tmpdir.name) / "champions.json"))
+    if ([e.to_json() for e in ChampionStore(path=path).entries()]
+            != [e.to_json() for e in store.entries()]):
+        raise AssertionError("store: save then load changed the entries")
+    out["store"] = dict(target=target, gens_to_target=gens_to_target,
+                        stored_metric=stored.metric, cache_hits=len(hits),
+                        store_stats=store.stats())
+    part_s["store"] = time.perf_counter() - t_part
+
+    # (e) prewarm: the saved store's traffic predicts a pool, built off the
+    # stepping thread; a scheduler on another copy of the store, without
+    # prewarm, runs the same request; then a prewarmed grow, and the kernel
+    # build cache in a second process
+    t_part = time.perf_counter()
+    r_pred = JobRequest(device=TRANSFER_DST, cfg=nsga2.NSGA2Config(pop_size=TRANSFER_POP),
+                        seed=11, budget=2 * CP_GENS_PER_STEP)
+    stores = [ChampionStore(), ChampionStore()]
+    for st in stores:
+        st.load(path)
+    sch = scheduler(store=stores[0], prewarm=True)
+    keys = sch.prewarm_predicted(top_k=1)
+    if not sch.prewarmer.wait_idle(timeout=300) or sch.prewarmer.errors:
+        raise AssertionError(f"prewarm: {sch.prewarmer.stats()}")
+    sch.submit_request(r_pred)
+    (pred_job,) = drive(sch)[0].values()
+    pool_stats = next(iter(sch.stats()["pools"].values()))
+    if sch.prewarmer.adopted != 1 or pool_stats["blocking_compiles"] != 0:
+        raise AssertionError(f"prewarm: adopted {sch.prewarmer.adopted}, blocking builds "
+                             f"{pool_stats['blocking_compiles']}")
+    sch.close()
+    cold_sch = scheduler(store=stores[1])
+    cold_sch.submit_request(r_pred)
+    (cold_job,) = drive(cold_sch)[0].values()
+    if not (pred_job.warm_from_cache and cold_job.warm_from_cache):
+        raise AssertionError("prewarm: the store did not seed both jobs")
+    same_job("prewarmed pool against a cold one", pred_job.result, cold_job.result)
+    check_job(dst, pred_job.result, False)
+
+    first_step_ms = {}
+    for prewarm in (False, True, False, True):
+        torch.cuda.empty_cache()                 # the caching allocator starts empty
+        svc = PlacementService(problem, nsga2.NSGA2Config(pop_size=POP), n_slots=CP_SLOTS,
+                               gens_per_step=CP_GENS_PER_STEP, device="cuda")
+        grow_reqs = [JobRequest(**s) for s in make_job_specs(CP_PREWARM_SLOTS, POP, 64, seed=9)]
+        for r in grow_reqs[:CP_SLOTS]:
+            svc.submit_request(r)
+        svc.step()
+        if prewarm:
+            pw = Prewarmer()
+            pw.prewarm_grow(svc, CP_PREWARM_SLOTS)
+            if not pw.wait_idle(timeout=300) or pw.errors:
+                raise AssertionError(f"prewarm_grow: {pw.stats()}")
+            pw.close()
+        svc.grow(CP_PREWARM_SLOTS)
+        for r in grow_reqs[CP_SLOTS:]:
+            svc.submit_request(r)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            svc.step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        first_step_ms.setdefault("prewarmed" if prewarm else "cold", []).append(times)
+    del svc
+
+    child = subprocess.run([sys.executable, "-c", CACHE_CHILD, str(_build.build_dir())],
+                           capture_output=True, text=True, timeout=300,
+                           cwd=Path(__file__).resolve().parent)
+    if child.returncode != 0:
+        raise AssertionError(f"kernel cache process failed:\n{child.stderr}")
+    cached = json.loads(child.stdout.strip().splitlines()[-1])
+    if (cached["meter"]["recompiles"] != 0 or cached["meter"]["cache_hits"] != len(_build.NAMES)
+            or not all(cached["launches"].values())):
+        raise AssertionError(f"kernel cache process: {cached}")
+    out["prewarm"] = dict(predicted=[str(k[:2]) for k in keys], adopted=1,
+                          first_step_ms=first_step_ms, first_build=first_build,
+                          cached_process=cached["meter"])
+    part_s["prewarm"] = time.perf_counter() - t_part
+
+    # (f) the asyncio front-end: concurrent clients, one cancelled
+    t_part = time.perf_counter()
+    f_reqs = [JobRequest(device=FPGA_DEVICE, **s)
+              for s in make_job_specs(CP_FE_CLIENTS, POP, CP_FE_BUDGET, seed=10)]
+    latency, progress, handles = {}, {}, {}
+
+    async def client(fe, i, r):
+        t0 = time.perf_counter()
+        h = handles[i] = await fe.submit(r)
+        gens = progress[i] = []
+        async for u in h.progress():
+            gens.append(u.gens)
+            if i == CP_FE_CANCEL:
+                h.cancel()
+                break
+        try:
+            result = await h.wait()
+        except Exception:                        # noqa: BLE001 -- the cancelled job
+            result = None
+        latency[i] = (time.perf_counter() - t0) * 1e3
+        return result
+
+    async def serve_all():
+        async with PlacementFrontend(scheduler(), max_queue=CP_FE_QUEUE) as fe:
+            t0 = time.perf_counter()
+            results = await asyncio.gather(*[client(fe, i, r) for i, r in enumerate(f_reqs)])
+            dt = time.perf_counter() - t0
+            await fe.drain()
+            return results, dt, fe.stats()
+
+    results, dt, fe_stats = asyncio.run(serve_all())
+    if handles[CP_FE_CANCEL].status is not JobStatus.CANCELLED:
+        raise AssertionError(f"front-end: job {CP_FE_CANCEL} is {handles[CP_FE_CANCEL].status}")
+    seq = scheduler()
+    seq_jids = {i: seq.submit_request(r) for i, r in enumerate(f_reqs) if i != CP_FE_CANCEL}
+    seq_done = drive(seq)[0]
+    for i, jid in seq_jids.items():
+        same_job(f"front-end job {i} against the sequential scheduler", results[i],
+                 seq_done[jid].result)
+        if progress[i] != sorted(progress[i]):
+            raise AssertionError(f"front-end: job {i}'s progress {progress[i]} is not monotone")
+    finished = [r for i, r in enumerate(results) if i != CP_FE_CANCEL]
+    if (len({id(r) for r in finished}) != CP_FE_CLIENTS - 1
+            or fe_stats["completed"] != CP_FE_CLIENTS - 1 or fe_stats["cancelled"] != 1
+            or fe_stats["failed"] != 0 or fe_stats["submitted"] != CP_FE_CLIENTS):
+        raise AssertionError(f"front-end: drain lost or duplicated a job: {trimmed(fe_stats)}")
+    lat = [latency[i] for i in seq_jids]
+    out["frontend"] = dict(seconds=dt, jobs_per_s=len(finished) / dt,
+                           p50_ms=float(np.percentile(lat, 50)),
+                           p99_ms=float(np.percentile(lat, 99)),
+                           backpressure_waits=fe_stats["backpressure_waits"],
+                           cancelled_at_gens=progress[CP_FE_CANCEL])
+    part_s["frontend"] = time.perf_counter() - t_part
+
+    # (g) the launcher, every control-plane flag and the front-end
+    t_part = time.perf_counter()
+    text = io.StringIO()
+
+    def launch():
+        with contextlib.redirect_stdout(text):
+            serve.main(["--placement", "--device", "xcvu_test", "--requests", "4",
+                        "--slots", "2", "--pop", "16", "--gens", "8", "--cache",
+                        "--policy", "deadline", "--autoscale", "--prewarm", "--frontend",
+                        "--compile-cache-dir", str(_build.build_dir())])
+        compile_cache.disable()
+
+    _, dt, paths["control_plane_launcher"] = counted(kernels, launch)
+    lines = text.getvalue().strip().splitlines()
+    if (not lines[0].startswith(f"kernel build cache: {_build.build_dir()}")
+            or "4 done / 0 cancelled / 0 failed" not in text.getvalue()
+            or [f"client{i:2d}: job" in text.getvalue() for i in range(4)] != [True] * 4):
+        raise AssertionError(f"control-plane launcher output:\n{text.getvalue()}")
+    out["launcher"] = dict(seconds=dt, lines=lines[-2:])
+    part_s["launcher"] = time.perf_counter() - t_part
+    out["part_s"] = part_s
+    tmpdir.cleanup()
+    return out, paths
+
+
+def run_cached(sch, reqs, metric):
+    """The requests again with `target` at the stored metric: answered from
+    the champion store at submit."""
+    jids = [sch.submit_request(r.replace(target=metric)) for r in reqs]
+    done = {j.jid: j for j in sch.step()}
+    return [done[j] for j in jids]
 
 
 # ------------------------------------------------------------ phase 4
@@ -1534,6 +1961,7 @@ def main() -> int:
     from repro_torch.fpga import device, netlist
     from repro_torch.kernels import (_build, bbox, domination, flash_attention, fused_eval,
                                      wirelength)
+    from repro_torch.runtime import compile_cache
 
     torch.backends.cuda.matmul.allow_tf32 = False
     start = time.perf_counter()
@@ -1550,6 +1978,11 @@ def main() -> int:
     if sorted(_build.NAMES) != sorted(p.name.split("-")[0] for p in
                                       map(_build.library_path, _build.NAMES) if p.exists()):
         raise AssertionError(f"not every library of {_build.NAMES} was built")
+    meter = compile_cache.meter()
+    first_build = dict(nvcc_builds=meter.recompiles, cache_hits=meter.cache_hits,
+                       seconds=meter.compile_secs)
+    print(f"build meter: {first_build['nvcc_builds']} nvcc builds, {first_build['cache_hits']} "
+          f"found on disk, {first_build['seconds']:.2f} s")
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
@@ -1713,6 +2146,49 @@ def main() -> int:
           f"warm {v['warm']}; {v['seconds']:.3f} s")
     print(f"  launcher: {svc['launcher']['last_line']} ({svc['launcher']['seconds']:.3f} s); "
           f"the phase {time.perf_counter() - t0:.1f} s, by part (s) {svc['part_s']}")
+    print(f"[{time.perf_counter() - start:.1f} s] control plane: schedulers of {CP_SLOTS}-slot "
+          f"pools at {CP_GENS_PER_STEP} gens per step")
+    t0 = time.perf_counter()
+    cp, paths = run_control_plane_phase(problem, kernels, table2["seed_champion"], first_build)
+    by_path.update(paths)
+    v = cp["routing"]
+    print(f"  routing: {CP_NSGA_JOBS} NSGA-II (pop {POP}) + {CP_GA_JOBS} GA (pop {CP_GA_POP}) "
+          f"jobs x {CP_BUDGET} gens, 2 pools round-robin: {v['seconds']:.3f} s, "
+          f"{v['jobs_per_s']:.3f} jobs/s, {v['steps']} scheduler steps {v['steps_per_pool']}, "
+          f"ms per step by pool {v['ms_per_step']}; launches {by_path['control_plane_routing']}; "
+          f"every champion legal and O.evaluate's, one NSGA-II and one GA job == a standalone "
+          f"pool: True")
+    print(f"  routing stats: {json.dumps(v['stats'])}")
+    v = cp["policy"]
+    print(f"  deadline policy: the urgent job finished after {v['urgent_steps_deadline']} "
+          f"scheduler steps (round-robin {v['urgent_steps_round_robin']}), all jobs after "
+          f"{v['total_steps_deadline']} ({v['total_steps_round_robin']}); results unchanged: True")
+    v = cp["autoscale"]
+    print(f"  autoscale ({CP_AUTOSCALE_JOBS} jobs, threshold {CP_AUTOSCALE_THRESHOLD}, max "
+          f"{CP_MAX_SLOTS}): events {v['events']}, sizes {v['sizes']}, {v['steps']} steps; "
+          f"launches per step (slots, counts) {v['launches_per_step']}; grown jobs == "
+          f"standalone: True")
+    v = cp["store"]
+    print(f"  store: {TRANSFER_SRC} champion -> {TRANSFER_DST} jobs (pop {TRANSFER_POP}, budget "
+          f"{TRANSFER_GENS}, seeds {CP_STORE_SEEDS}), target {v['target']:.4e}: gens to target "
+          f"cold {v['gens_to_target']['cold']}, warm from the store "
+          f"{v['gens_to_target']['warm']}; stored {TRANSFER_DST} metric "
+          f"{v['stored_metric']:.4e}; second wave {v['cache_hits']} cache hits, 0 gens, no pool "
+          f"step, no launch; save/load round trip: True; {v['store_stats']}")
+    v = cp["prewarm"]
+    print(f"  prewarm: predicted {v['predicted']} built off-thread and adopted, blocking builds "
+          f"0, result == a cold pool's: True; first two steps after grow({CP_SLOTS} -> "
+          f"{CP_PREWARM_SLOTS}) ms {v['first_step_ms']}; the script's first build "
+          f"{v['first_build']}; a second process with the build dir: {v['cached_process']}")
+    v = cp["frontend"]
+    print(f"  front-end: {CP_FE_CLIENTS} clients (max_queue {CP_FE_QUEUE}, budget "
+          f"{CP_FE_BUDGET}), job {CP_FE_CANCEL} cancelled at gens {v['cancelled_at_gens']}: "
+          f"{v['seconds']:.3f} s, {v['jobs_per_s']:.3f} jobs/s, submit-to-terminal p50 "
+          f"{v['p50_ms']:.1f} ms, p99 {v['p99_ms']:.1f} ms, backpressure waits "
+          f"{v['backpressure_waits']}; == the sequential scheduler: True")
+    print(f"  control-plane launcher: {cp['launcher']['lines']} "
+          f"({cp['launcher']['seconds']:.3f} s; launches {by_path['control_plane_launcher']}); "
+          f"the phase {time.perf_counter() - t0:.1f} s, by part (s) {cp['part_s']}")
     print(f"[{time.perf_counter() - start:.1f} s] serving")
 
     # the serving path at full width: every prefill attention layer runs

@@ -3,9 +3,12 @@
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build takes
 seconds).  Libraries land in `build/repro_torch_kernels/` at the repository
-root, named by a hash of their sources and flags, so an edited source
-rebuilds and an unchanged one is reused.  All missing libraries build at
-once, one nvcc process each, on the first launch of any kernel.
+root, or in the directory `runtime.compile_cache.enable` names, named by a
+hash of their sources, the nvcc flags and `nvcc --version`'s text, so an
+edited source or another toolkit rebuilds and an unchanged one is reused.
+All missing libraries build at once, one nvcc process each, on the first
+launch of any kernel; a module lock keeps two threads from building or
+loading at once.
 
 A `Kernel` is one wrapper's launcher and launch counter: it counts a launch
 only after the C entry point returned cudaSuccess, and raises otherwise.
@@ -20,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
@@ -35,6 +39,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 DTYPE_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
+_dir: Optional[Path] = None      # set by `runtime.compile_cache.enable`
+_LOCK = threading.RLock()        # around build() and library()'s load
+_COUNT_LOCK = threading.Lock()   # around Kernel.launches
+_requested: set = set()          # library paths requested in this process
+
+
+def build_dir() -> Path:
+    """Where libraries are built and looked up: `BUILD_DIR` unless
+    `set_build_dir` named another directory."""
+    return BUILD_DIR if _dir is None else _dir
+
+
+def set_build_dir(path: Optional[os.PathLike]) -> None:
+    """Build into and load from `path` from now on (None: `BUILD_DIR`)."""
+    global _dir
+    _dir = None if path is None else Path(path)
+
 
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
@@ -46,55 +67,89 @@ def _nvcc() -> str:
                        "cannot be built")
 
 
+@functools.cache
+def _version_text(nvcc: str) -> str:
+    proc = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=120)
+    return proc.stdout + proc.stderr
+
+
+def nvcc_version() -> str:
+    """`nvcc --version`'s text, or "" where there is no nvcc (a build then
+    raises naming the places it looked)."""
+    try:
+        return _version_text(_nvcc())
+    except RuntimeError:
+        return ""
+
+
 def library_path(name: str) -> Path:
+    """The library of `csrc/<name>.cu` under `build_dir()`, named by a hash
+    of the flags (the arch among them), the toolkit's version text and the
+    sources, so a shared directory never serves another toolkit's build."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc_version().encode())
     for src in [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Dict[str, str]:
     """Compile every library not yet built, all nvcc processes at once.
 
     Returns {name: compiler output} for the libraries built by this call
-    (ptxas reports registers, shared memory and spills per kernel), and
-    reports them with the call's wall seconds to the compile meter
-    (`runtime.compile_cache`).  Raises RuntimeError naming every source
-    that failed.
+    (ptxas reports registers, shared memory and spills per kernel).  Reports
+    to the compile meter (`runtime.compile_cache`) each library requested
+    for the first time in this process, whether it was found on disk, and
+    every nvcc build, with the call's wall seconds.  Raises RuntimeError
+    naming every source that failed.
     """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    jobs = []
-    for name in NAMES:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, out, tmp, proc))
-    logs, failed = {}, []
-    for name, out, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode == 0:
-            os.replace(tmp, out)      # atomic: concurrent builds agree
-        else:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-    if jobs:
-        compile_cache.meter().record(len(jobs), time.perf_counter() - t0)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return logs
+    with _LOCK:
+        out_dir = build_dir()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        jobs, hits = [], 0
+        for name in NAMES:
+            out = library_path(name)
+            if out.exists():
+                if out not in _requested:
+                    _requested.add(out)
+                    hits += 1
+                continue
+            _requested.add(out)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, out, tmp, proc))
+        logs, failed = {}, []
+        for name, out, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            logs[name] = log
+            if proc.returncode == 0:
+                os.replace(tmp, out)      # atomic: concurrent builds agree
+            else:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+        if jobs or hits:
+            compile_cache.meter().record(len(jobs) + hits, time.perf_counter() - t0,
+                                         hits=hits)
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        return logs
 
 
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(str(library_path(name)))
+    """The loaded library of `csrc/<name>.cu`, built first if missing.
+
+    Cached for the life of the process: a library loaded once stays loaded
+    (and is used) after `set_build_dir` / `compile_cache.enable` moves the
+    directory; only libraries first loaded after the move come from there.
+    """
+    with _LOCK:
+        build()
+        lib = ctypes.CDLL(str(library_path(name)))
     err = getattr(lib, f"{name}_error_string")
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     return lib
@@ -155,4 +210,5 @@ class Kernel:
             msg = getattr(library(self.name), f"{self.name}_error_string")(err)
             raise RuntimeError(f"{self.name} kernel launch failed: "
                                f"{msg.decode()} (cudaError {err})")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1

@@ -41,8 +41,12 @@ job from a genotype (`core.warmstart`).  Islands:
 every slot hold P island sub-populations (`islands.pool_round`); P == 1
 keeps the plain pool bit for bit.
 
-The scheduler, prewarm, the champion store and the asyncio front-end are
-not ported yet (ROADMAP queue 1 item 9b).
+`prewarm_size(n)` runs the batched step at a future slot count on
+throwaway state, off the stepping thread (`serve.prewarm`), so a later
+`grow(n)` finds its kernels built and its allocations cached.  Every entry
+point runs with the pool's card as the calling thread's current device:
+the scheduler's front-end and prewarm threads issue CUDA work too, all on
+the default stream.
 """
 from __future__ import annotations
 
@@ -208,6 +212,10 @@ class PlacementService:
         self._meter = compile_cache.meter()
         self.blocking_compiles = 0
         self.blocking_compile_secs = 0.0
+        # builds seen on the thread running prewarm_size (serve.prewarm)
+        self.prewarm_compiles = 0
+        self.prewarm_compile_secs = 0.0
+        self._prewarmed_sizes = set()
         self._stepped_sizes = set()    # slot counts stepped (`step_compiles`)
         self._created_at = time.perf_counter()
         self._first_gen_ms: Optional[float] = None
@@ -217,25 +225,32 @@ class PlacementService:
         self._step_hist = telemetry.Histogram(
             "step_ms", buckets=telemetry.DEFAULT_LATENCY_BUCKETS_MS)
         with self._blocking():
-            self.states = self._fill(n_slots)
+            self.states = self._fill(n_slots, self._fill_gen)
         if tracing.enabled():
             tracing.tracer().end("pool.build", pool=self.label,
                                  n_slots=n_slots, algo=algo)
+
+    def _on_device(self):
+        """The pool's card as the calling thread's current device."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
 
     @contextlib.contextmanager
     def _blocking(self):
         """Attribute builds on the calling thread to this pool's blocking
         counters (the stepping loop's build latency)."""
-        with self._meter.measure() as m:
+        with self._on_device(), self._meter.measure() as m:
             yield
         self.blocking_compiles += m.compiles
         self.blocking_compile_secs += m.secs
 
-    def _fill(self, n: int) -> Dict:
-        """Throwaway states for `n` vacant slots, at the base config."""
+    def _fill(self, n: int, fill_gen: torch.Generator) -> Dict:
+        """Throwaway states for `n` vacant slots, at the base config, drawn
+        from `fill_gen`."""
         traced = {k: torch.full((n,), v, dtype=torch.float32, device=self.device)
                   for k, v in self._base_traced.items()}
-        gens = portfolio.member_generators(n, None, self._fill_gen, self.device)
+        gens = portfolio.member_generators(n, None, fill_gen, self.device)
         icfg = self.islands
         if not icfg.active:
             return portfolio.member_init(self.problem, self.algo, self.static_key,
@@ -420,7 +435,7 @@ class PlacementService:
                                    to_slots=n_slots)
         extra = n_slots - self.n_slots
         with self._blocking():
-            fill = self._fill(extra)
+            fill = self._fill(extra, self._fill_gen)
             self.states = G.tree_map(lambda a, b: torch.cat([a, b]), self.states, fill)
         self.traced = {
             k: np.concatenate(
@@ -440,8 +455,41 @@ class PlacementService:
                                  to_slots=n_slots)
 
     def prewarm_size(self, n_slots: int) -> bool:
-        """Ahead-of-time builds for a future `grow(n_slots)`."""
-        raise NotImplementedError("prewarm_size: not ported yet (ROADMAP queue 1 item 9b)")
+        """Run the pool's batched step at a future `grow(n_slots)`'s width,
+        ahead of time: a fill of the base hyperparameters at `n_slots`
+        slots, then one `step()`'s worth of generations on it, from fresh
+        generators.
+
+        The state is throwaway: the pool's tensors, host mirrors and
+        generators are never read or written, so this may run on another
+        thread (`serve.prewarm.Prewarmer`) while the pool keeps stepping.
+        What it leaves behind is what a first step at the new width would
+        otherwise pay in the stepping loop: the kernel builds, if none is
+        built yet, and the caching allocator's blocks at that width.  Builds
+        seen on the calling thread land in the prewarm counters, not the
+        blocking ones.  Returns True when work was done, False for an
+        already-prewarmed or non-growing size.
+        """
+        if n_slots <= self.n_slots or n_slots in self._prewarmed_sizes:
+            return False
+        if tracing.enabled():
+            tracing.tracer().begin("pool.prewarm_size", pool=self.label,
+                                   n_slots=n_slots)
+        dev = self.device
+        with self._on_device(), self._meter.measure() as m:
+            states = self._fill(n_slots, torch.Generator(device=dev).manual_seed(n_slots))
+            traced = {k: torch.tensor(np.full(n_slots, v, np.float32), device=dev)
+                      for k, v in self._base_traced.items()}
+            _, best = self._round(traced, states, np.zeros(n_slots, np.uint32),
+                                  np.zeros(n_slots, np.int32))
+            O.combined_metric(best.cpu().numpy())
+        self._prewarmed_sizes.add(n_slots)
+        self.prewarm_compiles += m.compiles
+        self.prewarm_compile_secs += m.secs
+        if tracing.enabled():
+            tracing.tracer().end("pool.prewarm_size", pool=self.label,
+                                 n_slots=n_slots, compiles=m.compiles)
+        return True
 
     # -------------------------------------------------------------- step
 
@@ -457,6 +505,22 @@ class PlacementService:
                                   for k, v in self.traced.items()}
         return self._traced_cache
 
+    def _round(self, traced: Dict[str, torch.Tensor], states: Dict, slot_seed: np.ndarray,
+               slot_gens: np.ndarray):
+        """`gens_per_step` batched generations of every slot of `states`,
+        slot i drawing from `job_generators(slot_seed[i], slot_gens[i])`;
+        returns (states, each slot's best objectives [S, 2] on the device)."""
+        problem, algo, sk, icfg = self.problem, self.algo, self.static_key, self.islands
+        gens = [job_generators(s, g, icfg.n_islands, self.device)
+                for s, g in zip(slot_seed.tolist(), slot_gens.tolist())]
+        if icfg.active:
+            # the slots' generation counts double as their migration
+            # phases: boundaries count each slot's global generations
+            return islands_mod.pool_round(problem, algo, sk, icfg, self.gens_per_step, traced,
+                                          states, gens, torch.tensor(slot_gens, device=self.device))
+        return portfolio.member_round(problem, algo, sk, self.gens_per_step, traced, states,
+                                      [g for (g,) in gens])
+
     def step(self) -> List[PlacementJob]:
         """Advance every slot `gens_per_step` generations in one batched
         step; harvest and return newly finished jobs.  The step reads the
@@ -469,20 +533,9 @@ class PlacementService:
             tracing.tracer().begin("pool.step", pool=self.label,
                                    active=n_active)
         t_step = time.perf_counter()
-        problem, algo, sk, icfg = self.problem, self.algo, self.static_key, self.islands
-        gens = [job_generators(s, g, icfg.n_islands, self.device)
-                for s, g in zip(self.slot_seed.tolist(), self.slot_gens.tolist())]
         with self._blocking():
-            if icfg.active:
-                # the slots' generation counts double as their migration
-                # phases: boundaries count each slot's global generations
-                self.states, best = islands_mod.pool_round(
-                    problem, algo, sk, icfg, self.gens_per_step, self._traced_dev(),
-                    self.states, gens, torch.tensor(self.slot_gens, device=self.device))
-            else:
-                self.states, best = portfolio.member_round(
-                    problem, algo, sk, self.gens_per_step, self._traced_dev(),
-                    self.states, [g for (g,) in gens])
+            self.states, best = self._round(self._traced_dev(), self.states,
+                                            self.slot_seed, self.slot_gens)
         self._stepped_sizes.add(self.n_slots)
         self.total_steps += 1
         self.useful_gens += n_active * self.gens_per_step
@@ -580,10 +633,9 @@ class PlacementService:
             jobs_cancelled=self.jobs_cancelled,
             blocking_compiles=self.blocking_compiles,
             blocking_compile_secs=round(self.blocking_compile_secs, 3),
-            # no prewarm yet (ROADMAP queue 1 item 9b)
-            prewarm_compiles=0,
-            prewarm_compile_secs=0.0,
-            prewarmed_sizes=[],
+            prewarm_compiles=self.prewarm_compiles,
+            prewarm_compile_secs=round(self.prewarm_compile_secs, 3),
+            prewarmed_sizes=sorted(self._prewarmed_sizes),
             time_to_first_gen_ms=(
                 None if self._first_gen_ms is None
                 else round(self._first_gen_ms, 1)),

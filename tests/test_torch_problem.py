@@ -2,9 +2,11 @@
 
 The port keeps its own copies of `fpga/device.py` and `fpga/netlist.py`;
 every array, scalar and content hash must agree with the reference byte
-for byte.  Its copies of the reference's stdlib-only serving modules equal
-the reference's files, but for the lines that import the reference
-package, which import the port's module of the same name.  Nothing in `src/repro_torch/` or `chip_smoke.py` may import JAX
+for byte.  Its copies of the reference's serving modules that need no JAX
+equal the reference's files, but for the lines that import the reference
+package, which import the port's module of the same name (and, in the
+scheduler, the lines that add its `device` argument; in prewarm, the
+module docstring).  Nothing in `src/repro_torch/` or `chip_smoke.py` may import JAX
 or the reference package.
 """
 import ast
@@ -76,16 +78,56 @@ def test_port_imports_neither_jax_nor_reference(rel):
 
 
 # port copy -> the number of its lines that import the reference package
-COPIES = {"runtime/telemetry.py": 1, "serve/tracing.py": 0, "serve/api.py": 3}
+COPIES = {"runtime/telemetry.py": 1, "serve/tracing.py": 0, "serve/api.py": 3,
+          "serve/policy.py": 0, "serve/frontend.py": 4}
+
+
+def _lines(package, rel, below_docstring=False):
+    text = (ROOT / "src" / package / rel).read_text()
+    if below_docstring:
+        text = text[text.index("from __future__ import annotations"):]
+    return text.splitlines(keepends=True)
+
+
+def _assert_import_lines_only(ref, port, n_imports):
+    assert len(port) == len(ref)
+    differ = [(a, b) for a, b in zip(ref, port) if a != b]
+    assert len(differ) == n_imports
+    for a, b in differ:
+        assert a.lstrip().startswith("from repro.")
+        assert b == a.replace("from repro.", "from repro_torch.", 1)
 
 
 @pytest.mark.parametrize("rel", sorted(COPIES))
 def test_copied_modules_equal_the_reference(rel):
-    ref = (ROOT / "src" / "repro" / rel).read_text().splitlines(keepends=True)
-    port = (ROOT / "src" / "repro_torch" / rel).read_text().splitlines(keepends=True)
-    assert len(port) == len(ref)
-    differ = [(a, b) for a, b in zip(ref, port) if a != b]
-    assert len(differ) == COPIES[rel]
-    for a, b in differ:
-        assert a.lstrip().startswith("from repro.")
-        assert b == a.replace("from repro.", "from repro_torch.", 1)
+    _assert_import_lines_only(_lines("repro", rel), _lines("repro_torch", rel), COPIES[rel])
+
+
+def test_prewarm_equals_the_reference_below_its_docstring():
+    """The port's docstring says what a prewarm does without XLA; the code
+    below it is the reference's but for its one import line."""
+    rel = "serve/prewarm.py"
+    _assert_import_lines_only(_lines("repro", rel, True), _lines("repro_torch", rel, True), 1)
+
+
+def test_scheduler_differs_only_in_imports_and_its_device():
+    """The scheduler is the reference's but for its import lines and the
+    lines that add its `device` argument: each of those mentions `device`."""
+    import difflib
+    ref, port = _lines("repro", "serve/scheduler.py"), _lines("repro_torch", "serve/scheduler.py")
+    imports = device_lines = 0
+    for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(a=ref, b=port, autojunk=False).get_opcodes():
+        if tag == "equal":
+            continue
+        assert tag in ("replace", "insert"), (tag, ref[i1:i2])
+        old, new = ref[i1:i2], list(port[j1:j2])
+        for a in old:
+            b = a.replace("from repro.", "from repro_torch.", 1)
+            if a.lstrip().startswith("from repro.") and b in new:
+                new.remove(b)
+                imports += 1
+        assert all("device" in b for b in new), new
+        non_import = [a for a in old if not a.lstrip().startswith("from repro.")]
+        assert len(non_import) <= len(new), (non_import, new)
+        device_lines += len(new)
+    assert (imports, device_lines) == (12, 4)

@@ -427,9 +427,11 @@ def test_compile_meter_scopes_builds_to_the_thread():
 
 def test_kernel_builds_report_to_the_meter(tmp_path, monkeypatch):
     """`_build.build` counts every library it compiled (here with a stand-in
-    compiler that writes its -o file) on the calling thread's scope."""
+    compiler that answers --version and writes its -o file) on the calling
+    thread's scope."""
     fake = tmp_path / "nvcc"
-    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n')
+    fake.write_text('#!/bin/sh\nif [ "$1" = "--version" ]; then echo "fake nvcc"; exit 0; fi\n'
+                    'while [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n')
     fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
     monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
@@ -452,6 +454,7 @@ def test_tracing_spans_and_metrics_keep_the_reference_names():
         jid = svc.submit(request(0, budget=2))
         svc.submit(request(1, budget=4))
         svc.step()
+        assert svc.prewarm_size(3) and not svc.prewarm_size(3)
         svc.grow(3)
         svc.cancel(jid + 1)
         names = [(e.name, e.kind) for e in tracing.tracer().events()]
@@ -459,17 +462,17 @@ def test_tracing_spans_and_metrics_keep_the_reference_names():
         tracing.disable()
     for want in [("pool.build", "begin"), ("pool.build", "end"), ("job.submit", "instant"),
                  ("job.admitted", "instant"), ("pool.step", "begin"), ("pool.step", "end"),
-                 ("job.harvested", "instant"), ("pool.grow", "begin"), ("pool.grow", "end"),
+                 ("job.harvested", "instant"), ("pool.prewarm_size", "begin"),
+                 ("pool.prewarm_size", "end"), ("pool.grow", "begin"), ("pool.grow", "end"),
                  ("job.cancelled", "instant")]:
         assert want in names
+    assert svc.stats()["prewarmed_sizes"] == [3]
     text = telemetry.registry().prometheus_text()
     for name in ("repro_service_steps_total", "repro_useful_gens_total",
                  "repro_jobs_harvested_total", "repro_jobs_cancelled_total",
                  "repro_service_step_ms_bucket", 'repro_pool_best_metric{pool="traced-pool"}',
                  "repro_compiles_total", "repro_compile_seconds_total"):
         assert name in text
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        svc.prewarm_size(8)
 
 
 # -------------------------------------------------------------- launcher
