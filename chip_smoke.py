@@ -10,8 +10,14 @@
    attention over the reference's test grid, the serving path's prefill
    shapes, gemma3's D = 256 under a window and the tile edges of its
    tensor-core routes; domination bitwise, at the edges of its tiles too,
-   and with its batch axis, B in {1, 4, 8} x P in {16, 64, 128}, directly
-   and under `torch.func.vmap`; the evaluation kernels under vmap).
+   and with its batch axis, B in {1, 2, 4, 8, 12, 16} x P in {16, 32, 64,
+   128} (DOM_BATCHES x DOM_BATCH_SIZES), directly and under
+   `torch.func.vmap`; the evaluation kernels under vmap; wirelength2 at N
+   in WL_EDGE_NETS and maxbbox at (U, B) in BBOX_EDGE_UNITS, at every row
+   count of PLAN_ROWS, directly and under vmap).  Then batch invariance,
+   bit for bit: each row of a [1024, ...] input to wirelength2 (w [N] and
+   [P, N]) and maxbbox, f32 and bf16, alone, in a [64, ...] slice at
+   another offset and in the whole batch, directly and under vmap.
 3. Runs the placement path, NSGA-II on xcvu11p (80 conv units, pop 64, 200
    generations), through `repro_torch.core.evolve.run`, once unfused and
    once fused, with every launch counter set to 0 just before each run and
@@ -84,11 +90,20 @@
    SWEEP_ROWS and batched at [4, 128, 2] and [8, 128, 2], flash attention at the serving path's longest prefill
    against `scaled_dot_product_attention` as a yardstick (f32 beside its
    FMA and 3xTF32 bounds), and a generation against its rank peeling and
-   its device busy share.
+   its device busy share.  wirelength2 and maxbbox are also timed at the
+   path's width and at the floor (N = 7; U = B = 1) over FIGURE_ROWS rows,
+   and must issue one device op per call at every shape reported; each
+   placement wrapper's host µs per call is split by stage (`host_split`).
 
 Prints the card's name and power limit, one JSON line of kernel figures,
 and as its last line `{"ok": true, "device": {...}}`.  Exits non-zero,
 without that line, when no CUDA device is present or any phase fails.
+
+    python3 chip_smoke.py --launch-path [--src DIR]
+
+prints only the per-call host, CUDA-event and device µs of the placement
+wrappers at the main path's shape, importing `repro_torch` from DIR (the
+`src` of another checkout) when given, to compare two trees in one call.
 """
 from __future__ import annotations
 
@@ -141,6 +156,21 @@ DOM_BATCHES, DOM_BATCH_SIZES = (1, 2, 4, 8, 12, 16), (16, 32, 64, 128)
 # xcvu11p width and the xcvu3p / xcvu9p width (gids, nets, units, blocks)
 SLICE_ROWS = (1, 24, 25, 32, 48, 64)
 SLICE_SHAPES = ((2240, 1999, 80, 28), (3444, 3074, 123, 28))
+# wirelength2 and maxbbox at the edges of their designs (odd N starts most
+# rows unaligned and takes the scalar route; (130, 5) rows of 2600 bytes
+# take a scalar head and tail; B = 32 puts a warp on each unit), at every
+# row count the paths launch them with (SA 1, SA K = 8, the transfer 16,
+# CMA-ES 24, Table II 32, the GA 48, the main path 64, service pools of
+# 192 to 1024 rows) and 2048; then each row of INVARIANCE_ROWS alone, in a
+# slice of INVARIANCE_SLICE rows at another offset and in the whole batch
+WL_EDGE_NETS = (1, 3, 4, 5, 1999, 2000, 3074, 4097)
+BBOX_EDGE_UNITS = ((1, 1), (80, 28), (123, 28), (130, 5), (128, 32), (33, 3))
+PLAN_ROWS = (1, 7, 8, 16, 24, 32, 48, 64, 192, 256, 512, 768, 1024, 2048)
+INVARIANCE_ROWS, INVARIANCE_SLICE = 1024, 64
+# the floor: the same kernels at N = 7 and at U = B = 1; both, and the
+# path's width, timed at FIGURE_ROWS rows
+FLOOR_NETS, FLOOR_UNITS = 7, (1, 1)
+FIGURE_ROWS = (1, 8, 64, 256, 512, 768, 1024, 2048)
 # Table I at benchmarks/table1.py's quick scale (budgets x 0.25) on xcvu11p
 GA_POP, GA_GENS = 48, 75
 CMAES_POP, CMAES_GENS = 24, 150
@@ -331,6 +361,8 @@ def check_kernels(rng):
                 got, want = got[:, :, s - t:], want[:, :, s - t:]
             close("flash_attention", got, want, dtype)
 
+    check_plan_edges(close)
+
     # bounds: kernels read nothing past the real N, U and P -- the tails of
     # the buffers they are sliced from hold indices far out of range and
     # huge coordinates, which would show as NaN or a wrong max if read.
@@ -353,6 +385,105 @@ def check_kernels(rng):
     if not torch.isnan(bad).all():
         raise AssertionError("fused_eval: an out-of-range net index did not yield NaN")
     return errs, n_cases
+
+
+def check_plan_edges(close):
+    """wirelength2 and maxbbox against their plain versions at the edges of
+    their designs and at every row count of PLAN_ROWS, f32 and bf16,
+    directly and under `torch.func.vmap` (the row axis mapped)."""
+    import torch
+
+    from repro_torch.kernels import bbox, ref, wirelength
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def coords(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda") * 50
+
+    wl_rows = torch.func.vmap(wirelength.wirelength2, in_dims=(0, 0, 0, 0, None))
+    wl_rows_w = torch.func.vmap(wirelength.wirelength2)
+    bb_rows = torch.func.vmap(bbox.maxbbox)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in WL_EDGE_NETS:
+            for p in PLAN_ROWS:
+                xs = [coords(p, n).to(dtype) for _ in range(4)]
+                for w, rows in (((coords(n).abs() * 0.1).to(dtype), wl_rows),
+                                ((coords(p, n).abs() * 0.1).to(dtype), wl_rows_w)):
+                    want = ref.wirelength2_ref(*xs, w)
+                    close("wirelength2", wirelength.wirelength2(*xs, w), want, dtype)
+                    close("wirelength2", rows(*xs, w), want, dtype)
+        for u, b in BBOX_EDGE_UNITS:
+            for p in PLAN_ROWS:
+                ux, uy = coords(p, u, b).to(dtype), coords(p, u, b).to(dtype)
+                want = ref.maxbbox_ref(ux, uy)
+                close("maxbbox", bbox.maxbbox(ux, uy), want, dtype)
+                close("maxbbox", bb_rows(ux, uy), want, dtype)
+
+
+def check_batch_invariance():
+    """Each row of an [INVARIANCE_ROWS, ...] input gives the same bits
+    alone ([1, ...]), inside an [INVARIANCE_SLICE, ...] slice at another
+    offset (unaligned where N is odd) and in the whole batch, directly and
+    under vmap: wirelength2 at every N of WL_EDGE_NETS with w [N] and
+    [P, N], maxbbox at every (U, B) of BBOX_EDGE_UNITS, f32 and bf16.
+    Returns the number of rows checked."""
+    import torch
+
+    from repro_torch.kernels import bbox, wirelength
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows, width = INVARIANCE_ROWS, INVARIANCE_SLICE
+    # slices [o, o + width) from rows 0, 1, 64, 127, ... and rows - width:
+    # every row in one at another position than its own, most of them
+    # starting unaligned where N is odd
+    offsets = sorted({0, *range(1, rows - width + 1, width - 1), rows - width})
+    checked = 0
+
+    def same(what, full, parts):
+        torch.cuda.synchronize()
+        for name, got, lo in parts:
+            if not torch.equal(got, full[lo:lo + got.shape[0]]):
+                bad = int((got != full[lo:lo + got.shape[0]]).nonzero()[0, 0]) + lo
+                raise AssertionError(f"{what}: row {bad} {name} differs from the whole batch")
+
+    def check(what, fn, vfn, args):
+        """fn on rows of args (each [rows, ...]) alone, in slices and whole;
+        vfn is fn under vmap over a leading axis split off the rows."""
+        full = fn(*args)
+        parts = [("alone", torch.cat([fn(*(a[r:r + 1] for a in args)) for r in range(rows)]), 0)]
+        parts += [(f"in the slice at {o}", fn(*(a[o:o + width] for a in args)), o)
+                  for o in offsets]
+        # under vmap: the batch as [rows / width, width, ...], each slice as
+        # [4, width / 4, ...], each row alone as [1, 1, ...]
+        parts.append(("under vmap, whole",
+                      vfn(*(a.reshape(rows // width, width, *a.shape[1:]) for a in args))
+                      .reshape(rows), 0))
+        parts += [(f"under vmap, in the slice at {o}",
+                   vfn(*(a[o:o + width].reshape(4, width // 4, *a.shape[1:]) for a in args))
+                   .reshape(width), o) for o in offsets]
+        parts.append(("alone under vmap", torch.cat(
+            [vfn(*(a[r:r + 1].unsqueeze(0) for a in args)).reshape(1) for r in range(rows)]), 0))
+        same(what, full, parts)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in WL_EDGE_NETS:
+            xs = [(torch.randn(rows, n, generator=gen, device="cuda") * 50).to(dtype)
+                  for _ in range(4)]
+            w = (torch.rand(n, generator=gen, device="cuda") * 5).to(dtype)
+            check(f"wirelength2 N={n} {dtype} w [N]",
+                  lambda *a: wirelength.wirelength2(*a, w),
+                  lambda *a: torch.func.vmap(lambda *b: wirelength.wirelength2(*b, w))(*a), xs)
+            wp = (torch.rand(rows, n, generator=gen, device="cuda") * 5).to(dtype)
+            check(f"wirelength2 N={n} {dtype} w [P, N]", wirelength.wirelength2,
+                  torch.func.vmap(wirelength.wirelength2), [*xs, wp])
+            checked += 2 * rows
+        for u, b in BBOX_EDGE_UNITS:
+            ux, uy = ((torch.randn(rows, u, b, generator=gen, device="cuda") * 50).to(dtype)
+                      for _ in range(2))
+            check(f"maxbbox ({u}, {b}) {dtype}", bbox.maxbbox, torch.func.vmap(bbox.maxbbox),
+                  [ux, uy])
+            checked += rows
+    return checked
 
 
 # ------------------------------------------------------------ phase 3
@@ -1653,6 +1784,218 @@ def slice_figures():
     return out
 
 
+def plan_figures(problem):
+    """wirelength2 and maxbbox at the main path's width (N = problem's nets;
+    U, B its units and blocks) and at the floor (N = FLOOR_NETS, (U, B) =
+    FLOOR_UNITS) over FIGURE_ROWS: per call (CUDA events), device time and
+    ops, bound and plain version."""
+    import torch
+
+    from repro_torch.kernels import bbox, ref, wirelength
+
+    n, u = problem.n_nets, problem.n_units
+    b = problem.n_blocks // u
+    out = {"wirelength2": {}, "maxbbox": {}}
+
+    def record(name, key, kern, plain, nbytes, nops):
+        bms, by_what = bound_ms(nbytes, nops)
+        dev, ops = device_profile(kern, SYMBOLS[name])
+        out[name][key] = dict(ms=time_ms(kern), device_ms=dev, device_ops=ops,
+                              bound_ms=bms, bound_by=by_what, plain_ms=time_ms(plain))
+
+    for p in FIGURE_ROWS:
+        for label, nn in (("path", n), ("floor", FLOOR_NETS)):
+            xs = [torch.rand(p, nn, device="cuda") * 100 for _ in range(4)]
+            w = torch.rand(nn, device="cuda")
+            record("wirelength2", f"{label} [{p}, {nn}]",
+                   lambda xs=xs, w=w: wirelength.wirelength2(*xs, w),
+                   lambda xs=xs, w=w: ref.wirelength2_ref(*xs, w),
+                   16 * p * nn + 4 * nn + 4 * p, 8 * p * nn)
+        for label, (uu, bb) in (("path", (u, b)), ("floor", FLOOR_UNITS)):
+            ux, uy = (torch.rand(p, uu, bb, device="cuda") * 100 for _ in range(2))
+            record("maxbbox", f"{label} [{p}, {uu}, {bb}]",
+                   lambda ux=ux, uy=uy: bbox.maxbbox(ux, uy),
+                   lambda ux=ux, uy=uy: ref.maxbbox_ref(ux, uy),
+                   8 * p * uu * bb + 4 * p, p * (4 * uu * bb + 3 * uu))
+    return out
+
+
+def placement_cases(problem):
+    """The four placement wrappers at the main path's shapes ([POP, G]
+    coordinates of `problem`, [2 POP, 2] objectives), with what
+    `host_split` times of each: the call, the custom op, the implementation,
+    its inputs, the reshapes every call made before the launch path was
+    trimmed, the output allocation, the Kernel and its C arguments."""
+    import torch
+
+    from repro_torch.core.tables import problem_tensors
+    from repro_torch.kernels import bbox, domination, fused_eval, wirelength
+
+    tabs = problem_tensors(problem, "cuda")
+    s, d, w, uidx = tabs.net_src, tabs.net_dst, tabs.net_w, tabs.unit_index
+    p, g, n, (u, b), q = POP, problem.n_blocks, s.shape[0], uidx.shape, 2 * POP
+    bx, by = (torch.rand(p, g, device="cuda") * 100 for _ in range(2))
+    x1, y1, x2, y2 = (a.index_select(1, idx).contiguous() for idx in (s, d) for a in (bx, by))
+    ux, uy = bx.reshape(p, u, b), by.reshape(p, u, b)
+    objs = torch.rand(q, 2, device="cuda")
+    dev = bx.device
+    out_p, out_fe = torch.empty(p, device=dev), torch.empty(p, 2, device=dev)
+    dom = torch.empty(q, q, dtype=torch.bool, device=dev)
+    wl, bb = wirelength.plan(p, n), bbox.plan(p, u, b)
+    return {
+        "wirelength2": dict(
+            call=lambda: wirelength.wirelength2(x1, y1, x2, y2, w),
+            op=lambda: wirelength._op(x1, y1, x2, y2, w),
+            impl=lambda: wirelength._wirelength2(x1, y1, x2, y2, w),
+            inputs=(x1, y1, x2, y2, w), floats=(x1, y1, x2, y2, w), ints=(),
+            reshape=lambda: ([a.reshape(-1, n).contiguous() for a in (x1, y1, x2, y2)],
+                             w.contiguous(), out_p.reshape(p)),
+            empty=lambda: torch.empty(p, dtype=torch.float32, device=dev),
+            kernel=wirelength.KERNEL,
+            args=(x1.data_ptr(), y1.data_ptr(), x2.data_ptr(), y2.data_ptr(), w.data_ptr(), 0,
+                  out_p.data_ptr(), p, n, wl.threads)),
+        "maxbbox": dict(
+            call=lambda: bbox.maxbbox(ux, uy), op=lambda: bbox._op(ux, uy),
+            impl=lambda: bbox._maxbbox(ux, uy), inputs=(ux, uy), floats=(ux, uy), ints=(),
+            reshape=lambda: (ux.reshape(p, u, b).contiguous(), uy.reshape(p, u, b).contiguous(),
+                             out_p.reshape(p)),
+            empty=lambda: torch.empty(p, dtype=torch.float32, device=dev),
+            kernel=bbox.KERNEL,
+            args=(ux.data_ptr(), uy.data_ptr(), out_p.data_ptr(), p, u, b, bb.tile_units, bb.sub,
+                  bb.threads)),
+        "fused_eval": dict(
+            call=lambda: fused_eval.fused_eval(bx, by, s, d, w, uidx),
+            op=lambda: fused_eval._op(bx, by, s, d, w, uidx),
+            impl=lambda: fused_eval._fused_eval(bx, by, s, d, w, uidx),
+            inputs=(bx, by, s, d, w, uidx), floats=(bx, by, w), ints=(s, d, uidx),
+            reshape=lambda: (bx.contiguous(), by.contiguous()),
+            empty=lambda: torch.empty(p, 2, dtype=torch.float32, device=dev),
+            kernel=fused_eval.KERNEL,
+            args=(bx.data_ptr(), by.data_ptr(), s.data_ptr(), d.data_ptr(), w.data_ptr(),
+                  uidx.data_ptr(), out_fe.data_ptr(), p, g, n, u, b)),
+        "domination": dict(
+            call=lambda: domination.domination(objs), op=lambda: domination._op(objs),
+            impl=lambda: domination._domination(objs), inputs=(objs,), floats=(objs,), ints=(),
+            reshape=lambda: objs.contiguous(),
+            empty=lambda: torch.empty(q, q, dtype=torch.bool, device=dev),
+            kernel=domination.KERNEL,
+            args=(objs.data_ptr(), dom.data_ptr(), None, 1, q, 2)),
+    }
+
+
+def host_split(problem, iters: int = 1000):
+    """Host µs per call of each placement wrapper at the main path's shape,
+    by stage: `time.perf_counter` over `iters` calls with no
+    synchronisation, and the profiler's CPU self times of `iters` calls.
+    The stages the launch path dropped are timed as they ran before
+    ("..._before"): the custom op's dispatcher (now skipped where `direct`
+    allows), the views of the inputs and the output, `torch.cuda.device`
+    around `torch.cuda.current_stream`, and `library()` + `getattr` per call.
+    The counts of the launches made here are not read by any check."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+
+    def us(fn):
+        for _ in range(10):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t = (time.perf_counter() - t0) / iters * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    out = {}
+    for name, c in placement_cases(problem).items():
+        k, dev = c["kernel"], c["inputs"][0].device
+        idx, lib = dev.index, _build.library(k.name)
+        stream = torch._C._cuda_getCurrentRawStream(idx)
+        fn = k.entry("f32")
+
+        def stream_before(dev=dev):
+            with torch.cuda.device(dev):
+                return torch.cuda.current_stream(dev).cuda_stream
+
+        split = {
+            "call": us(c["call"]),
+            "custom_op_before": us(c["op"]),
+            "implementation": us(c["impl"]),
+            "direct": us(lambda c=c: _build.direct(*c["inputs"])),
+            "reshapes_before": us(c["reshape"]),
+            "checks": us(lambda c=c, name=name: _build.check_inputs(
+                name, floats=c["floats"], ints=c["ints"])),
+            "empty": us(c["empty"]),
+            "device_and_stream_before": us(stream_before),
+            "device_and_stream": us(lambda idx=idx: idx == torch.cuda.current_device()
+                                    and torch._C._cuda_getCurrentRawStream(idx)),
+            "entry_before": us(lambda lib=lib, k=k: getattr(lib, f"{k.name}_f32")),
+            "entry": us(lambda k=k: k.entry("f32")),
+            "ctypes_call": us(lambda fn=fn, c=c: fn(*c["args"], stream)),
+            "launch": us(lambda k=k, c=c, dev=dev: k.launch(torch.float32, dev, *c["args"])),
+        }
+        split["dispatch_saved"] = split["custom_op_before"] - split["implementation"]
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(iters):
+                c["call"]()
+        torch.cuda.synchronize()
+        top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
+        split["profiler_cpu_self_us"] = {e.key: e.self_cpu_time_total / iters for e in top}
+        out[name] = split
+    return out
+
+
+def launch_path(problem, iters: int = 1000):
+    """Per call of each placement wrapper at the main path's shape, and of
+    wirelength2 and maxbbox at 2048 rows and at the floor: host µs
+    (`time.perf_counter` over `iters` calls, no synchronisation), µs with
+    CUDA events back to back, and device µs and ops.  Only the public
+    wrappers are called, so the same function times another tree's port
+    (`--launch-path --src DIR`)."""
+    import torch
+
+    from repro_torch.core.tables import problem_tensors
+    from repro_torch.kernels import bbox, domination, fused_eval, wirelength
+
+    tabs = problem_tensors(problem, "cuda")
+    s, d, w, uidx = tabs.net_src, tabs.net_dst, tabs.net_w, tabs.unit_index
+    p, g, n, (u, b) = POP, problem.n_blocks, s.shape[0], uidx.shape
+    bx, by = (torch.rand(p, g, device="cuda") * 100 for _ in range(2))
+    x1, y1, x2, y2 = (a.index_select(1, idx).contiguous() for idx in (s, d) for a in (bx, by))
+    ux, uy = bx.reshape(p, u, b), by.reshape(p, u, b)
+    objs = torch.rand(2 * p, 2, device="cuda")
+    calls = {"wirelength2": lambda: wirelength.wirelength2(x1, y1, x2, y2, w),
+             "maxbbox": lambda: bbox.maxbbox(ux, uy),
+             "fused_eval": lambda: fused_eval.fused_eval(bx, by, s, d, w, uidx),
+             "domination": lambda: domination.domination(objs),
+             "domination_counts": lambda: domination.domination_counts(objs)}
+    # wirelength2 and maxbbox at 2048 rows and at the floor, 64 rows
+    big = [torch.rand(2048, n, device="cuda") for _ in range(4)]
+    floor = [torch.rand(p, FLOOR_NETS, device="cuda") for _ in range(5)]
+    ubig = [torch.rand(2048, u, b, device="cuda") for _ in range(2)]
+    ufloor = [torch.rand(p, *FLOOR_UNITS, device="cuda") for _ in range(2)]
+    calls.update({
+        f"wirelength2 [2048, {n}]": lambda: wirelength.wirelength2(*big, w),
+        f"wirelength2 [{p}, {FLOOR_NETS}]": lambda: wirelength.wirelength2(*floor[:4], floor[4][0]),
+        f"maxbbox [2048, {u}, {b}]": lambda: bbox.maxbbox(*ubig),
+        f"maxbbox [{p}, {FLOOR_UNITS[0]}, {FLOOR_UNITS[1]}]": lambda: bbox.maxbbox(*ufloor)})
+    out = {}
+    for name, fn in calls.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = (time.perf_counter() - t0) / iters * 1e6
+        torch.cuda.synchronize()
+        dev, ops = device_profile(fn, SYMBOLS[name.split()[0]])
+        out[name] = dict(host_us=host, event_us=time_ms(fn) * 1e3,
+                         device_us=None if dev is None else dev * 1e3, device_ops=ops)
+    return out
+
+
 def profiled(fn, reps: int):
     """`reps` calls of `fn` under torch.profiler: (host-clock µs, device ops
     per call, the device's busy share -- kernel time over wall time -- and
@@ -1951,11 +2294,29 @@ def flash_figures(errs, launches):
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    if args and args[0] == "--launch-path":
+        if args[1:2] == ["--src"]:          # another tree's port, compared in the same call
+            sys.path.insert(0, str(Path(args[2]).resolve()))
+        elif args[1:]:
+            print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
+            return 2
+    elif args:
+        print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    if args:
+        import repro_torch
+        from repro_torch.fpga import device, netlist
+        problem = netlist.make_problem(device.get_device(FPGA_DEVICE))
+        print(card_line())
+        print(json.dumps({"launch_path": launch_path(problem),
+                          "package": str(Path(repro_torch.__file__).parent)}))
+        return 0
     import numpy as np
 
     from repro_torch.fpga import device, netlist
@@ -1991,6 +2352,11 @@ def main() -> int:
     errs, n_cases = check_kernels(np.random.default_rng(SEED))
     print(f"kernels vs plain on the card: {n_cases} cases passed, "
           f"max abs err (f32) {errs}")
+    t0 = time.perf_counter()
+    n_rows = check_batch_invariance()
+    print(f"batch invariance: {n_rows} rows of wirelength2 and maxbbox alone, in a slice and "
+          f"in a batch of {INVARIANCE_ROWS}, directly and under vmap, bit for bit "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # phase 3: the main path, unfused then fused
     problem = netlist.make_problem(device.get_device(FPGA_DEVICE))
@@ -2233,11 +2599,34 @@ def main() -> int:
     rows = kernel_figures(problem, runs[True]["coords"], runs[True]["objs"], errs, launches)
     rows.append(flash_figures(errs, launches["flash_attention"]))
     shapes = slice_figures()
+    plans = plan_figures(problem)
+    split = host_split(problem)
     for row in rows:
         name = row["name"]
         row["launches_by_path"] = {p: c[row_label.get(name, name)] for p, c in by_path.items()}
         if name in shapes:
             row["shapes"] = shapes[name]
+        if name in plans:
+            row["rows"] = plans[name]
+        if name in split:
+            row["host_split_us"] = split[name]
+    # one device op per call of the redesigned kernels at every reported shape
+    for row in rows:
+        if row["name"] in plans:
+            ops = [row["device_ops"], row["device_ops_2048"],
+                   *(v["device_ops"] for v in row["shapes"].values()),
+                   *(v["device_ops"] for v in row["rows"].values())]
+            if any(o is not None and o != 1.0 for o in ops):
+                raise AssertionError(f"{row['name']}: device ops per call {ops}, expected 1")
+            print(f"{row['name']}: 1 device op per call at all {len(ops)} reported shapes "
+                  f"({sum(o is None for o in ops)} traces without the kernel)")
+    for name, per_shape in plans.items():
+        for key, v in per_shape.items():
+            print(f"{name} at {key}: {v['ms']:.4f} ms per call, device {v['device_ms']} ms in "
+                  f"{v['device_ops']} ops, bound {v['bound_ms']:.6f} ms ({v['bound_by']}), "
+                  f"plain {v['plain_ms']:.4f} ms")
+    for name, v in split.items():
+        print(f"{name} host µs per call by stage: {json.dumps(v)}")
     for name, per_shape in shapes.items():
         for key, v in per_shape.items():
             print(f"{name} at {key}: {v['ms']:.4f} ms per call, device {v['device_ms']} ms in "

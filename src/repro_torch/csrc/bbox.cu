@@ -8,62 +8,195 @@
 //
 // Bound on the H100: bytes (8 bytes per block in f32 against ~4 compares).
 // At the main path's shape (P = 64, U = 80, B = 28) the call reads ~1.1 MB,
-// a third of a microsecond at 3.35 TB/s, so the launch dominates.
+// a third of a microsecond at 3.35 TB/s: the latency of the loads and the
+// launch decide the time.
 //
-// Design: one block per row, one thread per unit (strided when U exceeds
-// the block), each walking its unit's B contiguous blocks, then one block
-// max.  The TPU version transposed to [P, B, U] and padded units and blocks
-// with neutral copies; here the loops stop at the real U and B.
+// Design.  One block per row.  The row's U * B values of each array are
+// contiguous (8960 bytes at the path's shape), so the block stages them in
+// shared memory coalesced, `tile_units` units at a time (the whole row up
+// to MAX_TILE values): 16-byte loads where the address allows, a scalar
+// head and tail where it does not (Strip below), every load of a thread
+// in flight before any store, and `threads` threads enough for one round
+// trip per tile.  Each unit's min and max are then taken from shared
+// memory by `sub` lanes, the largest power of two <= 32 that divides B,
+// lane s reading blocks s, s + sub, ...: B / sub is odd (or a warp holds
+// one unit), so the 32 lanes of a warp read 32 distinct banks with no
+// padding (at B = 28, 4 lanes per unit; one lane per unit, 28 words
+// apart, met 4-way conflicts).  The lanes combine with xor shuffles and
+// the block takes the max over its units: one store per row, no memset.
+// kernels/bbox.py::plan picks tile_units, sub and threads.  Min and max
+// are exact, so a row gives the same bits alone, in a slice and in any
+// batch.  (A cluster of up to 8 blocks per row, combining maxima through
+// distributed shared memory, measured slower than one block per row at
+// every row count from 1 to 2048 on the H100: see PERF.md.)
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxTile = 4096;              // values per array: 2 x (4096 + 4) floats = 32 KB
+constexpr int kUnroll = 4;                  // 16-byte loads in flight per array and thread
+
+// Shared floats per staged array: n + 3 for the Strip's shift, rounded up
+// so that the next array starts 16-byte aligned.
+__host__ __device__ constexpr int room_floats(int n) { return ((n + 3) & ~3) + 4; }
+
+// One array's run of n elements, staged into shared memory as f32 in
+// three parts: a scalar head up to the source's first 16-byte boundary,
+// a body of 16-byte loads (4 floats or 8 bf16 each), a scalar tail.  The
+// split follows the address only; element i always lands in dst[i], so
+// what is computed from the staged values does not depend on alignment.
+template <typename T>
+struct Strip {
+  const T* src;
+  float* dst;      // dst + head is 16-byte aligned, so the body stores whole vectors
+  int n, head, nvec;
+};
+
+// `room` is 16-byte aligned shared memory for n + 3 floats.
+template <typename T>
+__device__ __forceinline__ Strip<T> make_strip(const T* src, int n, float* room) {
+  constexpr int kVec = 16 / sizeof(T);
+  Strip<T> s;
+  s.src = src;
+  s.n = n;
+  const int head = static_cast<int>(
+      ((16u - (static_cast<unsigned>(reinterpret_cast<uintptr_t>(src)) & 15u)) & 15u) /
+      sizeof(T));
+  s.head = head < n ? head : n;
+  s.nvec = (n - s.head) / kVec;
+  s.dst = room + ((4 - (s.head & 3)) & 3);
+  return s;
+}
+
+__device__ __forceinline__ void store_vec(float* dst, uint4 raw, float) {
+  *reinterpret_cast<uint4*>(dst) = raw;
+}
+
+__device__ __forceinline__ void store_vec(float* dst, uint4 raw, __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+
+// Stages K strips with the `nt` threads tid = 0 .. nt - 1 of a group.  A
+// thread issues every load of a round -- its head and tail value and
+// kUnroll 16-byte loads per strip -- before any store, so a strip of up to
+// nt * kUnroll vectors costs one round trip to memory.  The caller syncs
+// after.
+template <int kUnroll, typename T, int K>
+__device__ __forceinline__ void stage_strips(const Strip<T> (&s)[K], int tid, int nt) {
+  constexpr int kVec = 16 / sizeof(T);
+  int most = 0;
+  float edge[K][2];
+#pragma unroll
+  for (int a = 0; a < K; ++a) {           // head and tail: fewer than kVec <= nt values each
+    const int tail = s[a].head + s[a].nvec * kVec;
+    edge[a][0] = tid < s[a].head ? to_f32(__ldg(s[a].src + tid)) : 0.0f;
+    edge[a][1] = tail + tid < s[a].n ? to_f32(__ldg(s[a].src + tail + tid)) : 0.0f;
+    most = s[a].nvec > most ? s[a].nvec : most;
+  }
+  int v0 = tid;
+  do {
+    uint4 raw[K][kUnroll];
+#pragma unroll
+    for (int a = 0; a < K; ++a)
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k)
+        if (v0 + k * nt < s[a].nvec)
+          raw[a][k] = __ldg(reinterpret_cast<const uint4*>(s[a].src + s[a].head) + v0 + k * nt);
+    if (v0 == tid) {
+#pragma unroll
+      for (int a = 0; a < K; ++a) {
+        const int tail = s[a].head + s[a].nvec * kVec;
+        if (tid < s[a].head) s[a].dst[tid] = edge[a][0];
+        if (tail + tid < s[a].n) s[a].dst[tail + tid] = edge[a][1];
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < K; ++a)
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k)
+        if (v0 + k * nt < s[a].nvec)
+          store_vec(s[a].dst + s[a].head + (v0 + k * nt) * kVec, raw[a][k], T());
+    v0 += kUnroll * nt;
+  } while (v0 < most);
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bbox_kernel(const T* __restrict__ ux, const T* __restrict__ uy,
-            float* __restrict__ out, int U, int B) {
+__global__ void __launch_bounds__(kMaxThreads)
+bbox_kernel(const T* __restrict__ ux, const T* __restrict__ uy, float* __restrict__ out,
+            int U, int B, int tile_units, int sub) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ float scratch[32];
-  const size_t row = static_cast<size_t>(blockIdx.x) * U * B;
+  const size_t off = static_cast<size_t>(blockIdx.x) * U * B;
+  const int room = room_floats(tile_units * B);
+  const int per_pass = blockDim.x / sub;    // units a pass of the block covers
+  const int j_lane = threadIdx.x / sub, s = threadIdx.x % sub;
   float best = -INFINITY;
-  for (int u = threadIdx.x; u < U; u += kThreads) {
-    const T* px = ux + row + static_cast<size_t>(u) * B;
-    const T* py = uy + row + static_cast<size_t>(u) * B;
-    float x_lo = INFINITY, x_hi = -INFINITY, y_lo = INFINITY, y_hi = -INFINITY;
-    for (int b = 0; b < B; ++b) {
-      const float x = to_f32(px[b]);
-      const float y = to_f32(py[b]);
-      x_lo = fminf(x_lo, x);
-      x_hi = fmaxf(x_hi, x);
-      y_lo = fminf(y_lo, y);
-      y_hi = fmaxf(y_hi, y);
+  for (int u0 = 0; u0 < U; u0 += tile_units) {
+    const int nu = min(tile_units, U - u0);
+    const Strip<T> st[2] = {make_strip(ux + off + static_cast<size_t>(u0) * B, nu * B, smem),
+                            make_strip(uy + off + static_cast<size_t>(u0) * B, nu * B,
+                                       smem + room)};
+    if (u0 > 0) __syncthreads();            // the last tile's reads are done
+    stage_strips<kUnroll>(st, threadIdx.x, blockDim.x);
+    __syncthreads();
+    for (int j0 = 0; j0 < nu; j0 += per_pass) {
+      const int j = j0 + j_lane;
+      float x_lo = INFINITY, x_hi = -INFINITY, y_lo = INFINITY, y_hi = -INFINITY;
+      if (j < nu) {
+        const float* px = st[0].dst + j * B;
+        const float* py = st[1].dst + j * B;
+        for (int b = s; b < B; b += sub) {
+          const float x = px[b], y = py[b];
+          x_lo = fminf(x_lo, x);
+          x_hi = fmaxf(x_hi, x);
+          y_lo = fminf(y_lo, y);
+          y_hi = fmaxf(y_hi, y);
+        }
+      }
+      for (int o = sub / 2; o > 0; o >>= 1) {
+        x_lo = fminf(x_lo, __shfl_xor_sync(0xffffffffu, x_lo, o));
+        x_hi = fmaxf(x_hi, __shfl_xor_sync(0xffffffffu, x_hi, o));
+        y_lo = fminf(y_lo, __shfl_xor_sync(0xffffffffu, y_lo, o));
+        y_hi = fmaxf(y_hi, __shfl_xor_sync(0xffffffffu, y_hi, o));
+      }
+      if (j < nu) best = fmaxf(best, (x_hi - x_lo) + (y_hi - y_lo));
     }
-    best = fmaxf(best, (x_hi - x_lo) + (y_hi - y_lo));
   }
   best = block_reduce<true>(best, scratch);
   if (threadIdx.x == 0) out[blockIdx.x] = best;
 }
 
 template <typename T>
-int launch(const void* ux, const void* uy, void* out, int P, int U, int B,
-           void* stream) {
-  bbox_kernel<T><<<P, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(ux), static_cast<const T*>(uy),
-      static_cast<float*>(out), U, B);
+int launch(const void* ux, const void* uy, void* out, int P, int U, int B, int tile_units,
+           int sub, int threads, void* stream) {
+  // the plan's invariants (kernels/bbox.py::plan holds the same)
+  if (P < 1 || U < 1 || B < 1 || tile_units < 1 || tile_units > U ||
+      tile_units * B > kMaxTile || sub < 1 || sub > 32 || (sub & (sub - 1)) != 0 ||
+      B % sub != 0 || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = 2 * room_floats(tile_units * B) * sizeof(float);
+  bbox_kernel<T><<<P, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(ux), static_cast<const T*>(uy), static_cast<float*>(out), U, B,
+      tile_units, sub);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int bbox_f32(const void* ux, const void* uy, void* out, int P, int U,
-                        int B, void* stream) {
-  return launch<float>(ux, uy, out, P, U, B, stream);
-}
+#define REPRO_BBOX_ENTRY(tag, T)                                                              \
+  extern "C" int bbox_##tag(const void* ux, const void* uy, void* out, int P, int U, int B,  \
+                            int tile_units, int sub, int threads, void* stream) {            \
+    return launch<T>(ux, uy, out, P, U, B, tile_units, sub, threads, stream);                \
+  }
 
-extern "C" int bbox_bf16(const void* ux, const void* uy, void* out, int P, int U,
-                         int B, void* stream) {
-  return launch<__nv_bfloat16>(ux, uy, out, P, U, B, stream);
-}
+REPRO_BBOX_ENTRY(f32, float)
+REPRO_BBOX_ENTRY(bf16, __nv_bfloat16)
 
 REPRO_EXPORT_ERROR_STRING(bbox)

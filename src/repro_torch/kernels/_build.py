@@ -12,8 +12,12 @@ loading at once.
 
 A `Kernel` is one wrapper's launcher and launch counter: it counts a launch
 only after the C entry point returned cudaSuccess, and raises otherwise.
-The placement kernels' wrappers are `torch.library.custom_op`s whose vmap
-rules fold the mapped axis into the rows of one launch (`vmap_to_front`).
+It resolves each C entry point once, and launches on the tensors' device's
+current stream, switching the current device only when it differs.
+The placement kernels' wrappers go through `torch.library.custom_op`s whose
+vmap rules fold the mapped axis into the rows of one launch
+(`vmap_to_front`); `direct` lets a call skip the op's dispatcher when no
+transform, autograd or dispatch mode needs it.
 """
 from __future__ import annotations
 
@@ -155,26 +159,47 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def check_inputs(what: str, floats: Sequence[torch.Tensor] = (),
                  ints: Sequence[torch.Tensor] = ()) -> None:
     """Raise unless every tensor is contiguous and on one CUDA device, the
     `floats` share one dtype from DTYPE_TAGS and the `ints` are int32."""
     tensors = (*floats, *ints)
-    dev = tensors[0].device
+    dev = tensors[0].get_device()       # an int: no torch.device built per tensor
     for t in tensors:
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
-        if t.device != dev:
-            raise ValueError(f"{what}: tensors on {dev} and {t.device}")
+        if t.get_device() != dev:
+            raise ValueError(f"{what}: tensors on {tensors[0].device} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
+    dtype = floats[0].dtype if floats else None
     for t in floats:
-        if t.dtype not in DTYPE_TAGS or t.dtype != floats[0].dtype:
+        if t.dtype is not dtype or dtype not in DTYPE_TAGS:
             raise TypeError(f"{what}: float inputs must share one dtype of "
                             f"{tuple(DTYPE_TAGS)}, got {t.dtype}")
     for t in ints:
-        if t.dtype != torch.int32:
+        if t.dtype is not torch.int32:
             raise TypeError(f"{what}: index inputs must be int32, got {t.dtype}")
+
+
+def direct(*tensors: torch.Tensor) -> bool:
+    """True when a wrapper may call its implementation without its custom
+    op's dispatcher: every input a plain CUDA tensor that autograd does not
+    record, no functorch transform (vmap) active and no Python dispatch
+    mode on the stack.  Otherwise the call goes through the op, whose vmap
+    rule, autograd key and visibility to dispatch modes it then needs."""
+    if (torch._C._functorch.peek_interpreter_stack() is not None
+            or torch._C._len_torch_dispatch_stack()):
+        return False
+    grad = torch.is_grad_enabled()
+    for t in tensors:
+        if type(t) is not torch.Tensor or not t.is_cuda or (grad and t.requires_grad):
+            return False
+    return True
 
 
 def vmap_to_front(t: torch.Tensor, dim: Optional[int], batch_size: int) -> torch.Tensor:
@@ -192,20 +217,29 @@ class Kernel:
         self.name = name
         self.argtypes = list(argtypes) + [ctypes.c_void_p]    # + stream
         self.launches = 0
+        self._entries: Dict[str, ctypes._CFuncPtr] = {}
 
-    def _entry(self, tag: str):
-        fn = getattr(library(self.name), f"{self.name}_{tag}")
-        if fn.argtypes is None:
+    def entry(self, tag: str):
+        """The C entry point `<name>_<tag>`, looked up once."""
+        fn = self._entries.get(tag)
+        if fn is None:
+            fn = getattr(library(self.name), f"{self.name}_{tag}")
             fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+            self._entries[tag] = fn
         return fn
 
     def launch(self, dtype: torch.dtype, device: torch.device, *args,
                entry: Optional[str] = None) -> None:
         """Call entry point `<name>_<entry>` (default: the `dtype` tag, as
-        in `domination_f32`) on `device`'s current stream."""
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = self._entry(entry or DTYPE_TAGS[dtype])(*args, stream)
+        in `domination_f32`) on `device`'s current stream, with `device`
+        current during the call."""
+        fn = self.entry(entry or DTYPE_TAGS[dtype])
+        index = device.index
+        if index == torch.cuda.current_device():
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         if err != 0:
             msg = getattr(library(self.name), f"{self.name}_error_string")(err)
             raise RuntimeError(f"{self.name} kernel launch failed: "

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import Kernel, check_inputs, vmap_to_front
+from repro_torch.kernels._build import Kernel, check_inputs, direct, vmap_to_front
 
 MAX_OBJECTIVES = 8
 MAX_BATCH = 65535                  # grid.z
@@ -47,25 +47,39 @@ def _launch(kernel: Kernel, objs: torch.Tensor, counts: bool
     return dom, cnt
 
 
-@torch.library.custom_op("repro_torch::domination", mutates_args=())
-def domination(objs: torch.Tensor) -> torch.Tensor:
-    """objs [..., P, M] -> bool [..., P, P]; out[..., i, j] iff i dominates
-    j.  One launch for every leading axis."""
+def _domination(objs: torch.Tensor) -> torch.Tensor:
     return _launch(KERNEL, objs, counts=False)[0]
 
 
-@torch.library.custom_op("repro_torch::domination_counts", mutates_args=())
-def domination_counts(objs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """objs [..., P, M] -> (bool dom [..., P, P], int32 dominated-by counts
-    [..., P]).  One launch for every leading axis."""
+def _domination_counts(objs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _launch(KERNEL_COUNTS, objs, counts=True)
 
 
-@domination.register_vmap
+_op = torch.library.custom_op("repro_torch::domination", _domination, mutates_args=())
+_op_counts = torch.library.custom_op("repro_torch::domination_counts", _domination_counts,
+                                     mutates_args=())
+
+
+def domination(objs: torch.Tensor) -> torch.Tensor:
+    """objs [..., P, M] -> bool [..., P, P]; out[..., i, j] iff i dominates
+    j.  One launch for every leading axis.  Through the custom op
+    `repro_torch::domination` unless `direct` finds nothing that needs it."""
+    return _domination(objs) if direct(objs) else _op(objs)
+
+
+def domination_counts(objs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """objs [..., P, M] -> (bool dom [..., P, P], int32 dominated-by counts
+    [..., P]).  One launch for every leading axis.  Through the custom op
+    `repro_torch::domination_counts` unless `direct` finds nothing that
+    needs it."""
+    return _domination_counts(objs) if direct(objs) else _op_counts(objs)
+
+
+@_op.register_vmap
 def _domination_vmap(info, in_dims, objs):
     return domination(vmap_to_front(objs, in_dims[0], info.batch_size)), 0
 
 
-@domination_counts.register_vmap
+@_op_counts.register_vmap
 def _domination_counts_vmap(info, in_dims, objs):
     return domination_counts(vmap_to_front(objs, in_dims[0], info.batch_size)), (0, 0)

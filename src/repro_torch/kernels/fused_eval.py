@@ -13,18 +13,14 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import Kernel, check_inputs, vmap_to_front
+from repro_torch.kernels._build import Kernel, check_inputs, direct, vmap_to_front
 
 MAX_SHARED_BYTES = 232448          # what one block may use on sm_90
 KERNEL = Kernel("fused_eval", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5)
 
 
-@torch.library.custom_op("repro_torch::fused_eval", mutates_args=())
-def fused_eval(cx: torch.Tensor, cy: torch.Tensor, src: torch.Tensor,
-               dst: torch.Tensor, w: torch.Tensor, uidx: torch.Tensor
-               ) -> torch.Tensor:
-    """cx, cy [..., G]; src, dst [N] int32; w [N]; uidx [U, B] int32
-    -> [..., 2] fp32 = (wirelength^2, max bbox).  CUDA tensors only."""
+def _fused_eval(cx: torch.Tensor, cy: torch.Tensor, src: torch.Tensor,
+                dst: torch.Tensor, w: torch.Tensor, uidx: torch.Tensor) -> torch.Tensor:
     cx, cy = cx.contiguous(), cy.contiguous()
     check_inputs("fused_eval", floats=(cx, cy, w), ints=(src, dst, uidx))
     if cy.shape != cx.shape or cx.dim() < 1:
@@ -48,7 +44,22 @@ def fused_eval(cx: torch.Tensor, cy: torch.Tensor, src: torch.Tensor,
     return out
 
 
-@fused_eval.register_vmap
+_op = torch.library.custom_op("repro_torch::fused_eval", _fused_eval, mutates_args=())
+
+
+def fused_eval(cx: torch.Tensor, cy: torch.Tensor, src: torch.Tensor,
+               dst: torch.Tensor, w: torch.Tensor, uidx: torch.Tensor
+               ) -> torch.Tensor:
+    """cx, cy [..., G]; src, dst [N] int32; w [N]; uidx [U, B] int32
+    -> [..., 2] fp32 = (wirelength^2, max bbox).  CUDA tensors only.
+    Through the custom op `repro_torch::fused_eval` unless `direct` finds
+    nothing (vmap, autograd, a dispatch mode) that needs its dispatcher."""
+    if direct(cx, cy, src, dst, w, uidx):
+        return _fused_eval(cx, cy, src, dst, w, uidx)
+    return _op(cx, cy, src, dst, w, uidx)
+
+
+@_op.register_vmap
 def _fused_eval_vmap(info, in_dims, cx, cy, src, dst, w, uidx):
     if any(d is not None for d in in_dims[2:]):
         raise ValueError("fused_eval: src, dst, w and uidx are tables shared by "
