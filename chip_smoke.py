@@ -13,10 +13,12 @@
    and with its batch axis, B in {1, 2, 4, 8, 12, 16} x P in {16, 32, 64,
    128} (DOM_BATCHES x DOM_BATCH_SIZES), directly and under
    `torch.func.vmap`; the evaluation kernels under vmap; wirelength2 at N
-   in WL_EDGE_NETS and maxbbox at (U, B) in BBOX_EDGE_UNITS, at every row
-   count of PLAN_ROWS, directly and under vmap).  Then batch invariance,
-   bit for bit: each row of a [1024, ...] input to wirelength2 (w [N] and
-   [P, N]) and maxbbox, f32 and bf16, alone, in a [64, ...] slice at
+   in WL_EDGE_NETS, maxbbox at (U, B) in BBOX_EDGE_UNITS and fused_eval at
+   (G, N, U, B) in FE_EDGE_SHAPES, at every row count of PLAN_ROWS,
+   directly and under vmap, and fused_eval at the largest G its plan
+   takes).  Then batch invariance, bit for bit: each row of a [1024, ...]
+   input to wirelength2 (w [N] and [P, N]), maxbbox and fused_eval (at
+   FE_INVARIANCE_SHAPES), f32 and bf16, alone, in a [64, ...] slice at
    another offset and in the whole batch, directly and under vmap.
 3. Runs the placement path, NSGA-II on xcvu11p (80 conv units, pop 64, 200
    generations), through `repro_torch.core.evolve.run`, once unfused and
@@ -90,10 +92,11 @@
    SWEEP_ROWS and batched at [4, 128, 2] and [8, 128, 2], flash attention at the serving path's longest prefill
    against `scaled_dot_product_attention` as a yardstick (f32 beside its
    FMA and 3xTF32 bounds), and a generation against its rank peeling and
-   its device busy share.  wirelength2 and maxbbox are also timed at the
-   path's width and at the floor (N = 7; U = B = 1) over FIGURE_ROWS rows,
-   and must issue one device op per call at every shape reported; each
-   placement wrapper's host µs per call is split by stage (`host_split`).
+   its device busy share.  wirelength2, maxbbox and fused_eval are also
+   timed at the path's width and at the floor (N = 7; U = B = 1; (G, N, U,
+   B) = (7, 7, 1, 1)) over FIGURE_ROWS rows, and must issue one device op
+   per call at every shape reported; each placement wrapper's host µs per
+   call is split by stage (`host_split`).
 
 Prints the card's name and power limit, one JSON line of kernel figures,
 and as its last line `{"ok": true, "device": {...}}`.  Exits non-zero,
@@ -102,7 +105,9 @@ without that line, when no CUDA device is present or any phase fails.
     python3 chip_smoke.py --launch-path [--src DIR]
 
 prints only the per-call host, CUDA-event and device µs of the placement
-wrappers at the main path's shape, importing `repro_torch` from DIR (the
+wrappers at the main path's shape (wirelength2, maxbbox and fused_eval
+also at 2048 rows and at the floor, fused_eval at the baselines' and the
+transfer's shapes), importing `repro_torch` from DIR (the
 `src` of another checkout) when given, to compare two trees in one call.
 """
 from __future__ import annotations
@@ -165,11 +170,19 @@ SLICE_SHAPES = ((2240, 1999, 80, 28), (3444, 3074, 123, 28))
 # slice of INVARIANCE_SLICE rows at another offset and in the whole batch
 WL_EDGE_NETS = (1, 3, 4, 5, 1999, 2000, 3074, 4097)
 BBOX_EDGE_UNITS = ((1, 1), (80, 28), (123, 28), (130, 5), (128, 32), (33, 3))
+# fused_eval (G, N, U, B) at the edges of its plan: odd G (rows start
+# unaligned: a scalar head and tail), B odd (sub = 1), B = 32 (a warp per
+# unit), 800 unit lanes (two passes of 512), N below the threads, B / sub
+# past the 7 indices a lane holds, and the floor; then the shapes whose
+# rows are held bit for bit: the path, xcvu3p's and an odd G
+FE_EDGE_SHAPES = ((2239, 1999, 80, 28), (97, 511, 13, 7), (1000, 300, 10, 32),
+                  (3444, 3074, 200, 28), (2240, 5, 80, 28), (331, 100, 9, 27), (7, 7, 1, 1))
+FE_INVARIANCE_SHAPES = ((2240, 1999, 80, 28), (3444, 3074, 123, 28), (2239, 1999, 80, 28))
 PLAN_ROWS = (1, 7, 8, 16, 24, 32, 48, 64, 192, 256, 512, 768, 1024, 2048)
 INVARIANCE_ROWS, INVARIANCE_SLICE = 1024, 64
-# the floor: the same kernels at N = 7 and at U = B = 1; both, and the
-# path's width, timed at FIGURE_ROWS rows
-FLOOR_NETS, FLOOR_UNITS = 7, (1, 1)
+# the floor: the same kernels at N = 7, at U = B = 1 and at (G, N, U, B) =
+# (7, 7, 1, 1); each, and the path's width, timed at FIGURE_ROWS rows
+FLOOR_NETS, FLOOR_UNITS, FLOOR_EVAL = 7, (1, 1), (7, 7, 1, 1)
 FIGURE_ROWS = (1, 8, 64, 256, 512, 768, 1024, 2048)
 # Table I at benchmarks/table1.py's quick scale (budgets x 0.25) on xcvu11p
 GA_POP, GA_GENS = 48, 75
@@ -219,17 +232,29 @@ BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 
 
 def tol(dtype, kernel: str = ""):
-    """The placement kernels: rtol 1e-5 / atol 1e-6.  Flash attention in f32:
-    the reference's own flash tests' rtol 2e-5 / atol 1e-5, because with
-    unit-scale q and k the fp32 logits of a 128-term dot product differ by
-    ~1e-6 between two summation orders, and exp passes that on to every
-    weight of the sum over T."""
+    """The placement kernels: rtol 1e-5 / atol 1e-6 in f32 and in bf16, which
+    they upcast on load and add in f32, so a bf16 case is held against the
+    plain version on the same inputs upcast to f32 (`plain`): only the
+    order of an f32 sum differs, whatever the draw.  Flash attention in
+    f32: the reference's own flash tests' rtol 2e-5 / atol 1e-5, because
+    with unit-scale q and k the fp32 logits of a 128-term dot product
+    differ by ~1e-6 between two summation orders, and exp passes that on
+    to every weight of the sum over T; in bf16 (bf16 products on the
+    tensor cores, against the plain version in bf16) rtol / atol 2e-2."""
     import torch
-    if dtype == torch.bfloat16:
-        return dict(rtol=2e-2, atol=2e-2)
     if kernel == "flash_attention":
+        if dtype == torch.bfloat16:
+            return dict(rtol=2e-2, atol=2e-2)
         return dict(rtol=2e-5, atol=1e-5)
     return dict(rtol=1e-5, atol=1e-6)
+
+
+def plain(fn, *args):
+    """A placement kernel's plain version on `args`, every bf16 tensor
+    among them upcast to f32 first (what the kernel computes)."""
+    import torch
+    return fn(*(a.float() if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16 else a
+                for a in args))
 
 
 def card_line() -> str:
@@ -274,30 +299,30 @@ def check_kernels(rng):
             for p in SWEEP_ROWS:
                 cx, cy = coords(p, g).to(dtype), coords(p, g).to(dtype)
                 close("fused_eval", fused_eval.fused_eval(cx, cy, src, dst, w, uidx),
-                      ref.fused_eval_ref(cx, cy, src, dst, w, uidx), dtype)
+                      plain(ref.fused_eval_ref, cx, cy, src, dst, w, uidx), dtype)
         for n in (7, 512, 1999, 4097):
             for p in SWEEP_ROWS:
                 xs = [coords(p, n).to(dtype) for _ in range(4)]
                 for w in ((coords(n).abs() * 0.1).to(dtype),
                           (coords(p, n).abs() * 0.1).to(dtype)):
                     close("wirelength2", wirelength.wirelength2(*xs, w),
-                          ref.wirelength2_ref(*xs, w), dtype)
+                          plain(ref.wirelength2_ref, *xs, w), dtype)
         for u, b in ((6, 28), (80, 28), (123, 28), (130, 5), (128, 32)):
             for p in SWEEP_ROWS:
                 ux, uy = coords(p, u, b).to(dtype), coords(p, u, b).to(dtype)
-                close("maxbbox", bbox.maxbbox(ux, uy), ref.maxbbox_ref(ux, uy), dtype)
+                close("maxbbox", bbox.maxbbox(ux, uy), plain(ref.maxbbox_ref, ux, uy), dtype)
         for g, n, u, b in SLICE_SHAPES:
             src, dst, uidx = ints(g, n), ints(g, n), ints(g, u, b)
             w = (coords(n).abs() * 0.002).to(dtype)
             for p in SLICE_ROWS:
                 cx, cy = coords(p, g).to(dtype), coords(p, g).to(dtype)
                 close("fused_eval", fused_eval.fused_eval(cx, cy, src, dst, w, uidx),
-                      ref.fused_eval_ref(cx, cy, src, dst, w, uidx), dtype)
+                      plain(ref.fused_eval_ref, cx, cy, src, dst, w, uidx), dtype)
                 xs = [coords(p, n).to(dtype) for _ in range(4)]
                 close("wirelength2", wirelength.wirelength2(*xs, w),
-                      ref.wirelength2_ref(*xs, w), dtype)
+                      plain(ref.wirelength2_ref, *xs, w), dtype)
                 ux, uy = coords(p, u, b).to(dtype), coords(p, u, b).to(dtype)
-                close("maxbbox", bbox.maxbbox(ux, uy), ref.maxbbox_ref(ux, uy), dtype)
+                close("maxbbox", bbox.maxbbox(ux, uy), plain(ref.maxbbox_ref, ux, uy), dtype)
         for p in DOM_SIZES:
             for m in (2, 3):
                 objs = torch.tensor(rng.uniform(size=(p, m)), dtype=torch.float32)
@@ -343,12 +368,14 @@ def check_kernels(rng):
         w = (coords(n).abs() * 0.002).to(dtype)
         cx, cy = coords(4, 16, g).to(dtype), coords(4, 16, g).to(dtype)
         close("fused_eval", torch.func.vmap(fused_eval.fused_eval, in_dims=(0, 0) + (None,) * 4)(
-            cx, cy, src, dst, w, uidx), ref.fused_eval_ref(cx, cy, src, dst, w, uidx), dtype)
+            cx, cy, src, dst, w, uidx), plain(ref.fused_eval_ref, cx, cy, src, dst, w, uidx),
+            dtype)
         xs = [coords(4, 16, n).to(dtype) for _ in range(4)]
         close("wirelength2", torch.func.vmap(wirelength.wirelength2, in_dims=(0,) * 4 + (None,))(
-            *xs, w), ref.wirelength2_ref(*xs, w), dtype)
+            *xs, w), plain(ref.wirelength2_ref, *xs, w), dtype)
         ux, uy = coords(4, 16, u, b).to(dtype), coords(4, 16, u, b).to(dtype)
-        close("maxbbox", torch.func.vmap(bbox.maxbbox)(ux, uy), ref.maxbbox_ref(ux, uy), dtype)
+        close("maxbbox", torch.func.vmap(bbox.maxbbox)(ux, uy), plain(ref.maxbbox_ref, ux, uy),
+              dtype)
         for b, h, hkv, s, t, d, window, scale in FLASH_CASES:
             q = (coords(b, h, s, d) * (scale / 50)).to(dtype)
             k, v = ((coords(b, hkv, t, d) * (scale / 50)).to(dtype) for _ in range(2))
@@ -377,7 +404,7 @@ def check_kernels(rng):
     w = coords(n).abs() * 0.01
     src, dst, uidx, cx, cy = src_buf[:n], dst_buf[:n], uidx_buf[:u], cx_buf[:p], cy_buf[:p]
     close("fused_eval", fused_eval.fused_eval(cx, cy, src, dst, w, uidx),
-          ref.fused_eval_ref(cx, cy, src, dst, w, uidx), torch.float32)
+          plain(ref.fused_eval_ref, cx, cy, src, dst, w, uidx), torch.float32)
     # an index out of range yields NaN instead of a read out of bounds
     bad = fused_eval.fused_eval(cx, cy, src_buf[: n + 1], dst_buf[: n + 1],
                                 coords(n + 1).abs(), uidx)
@@ -388,12 +415,13 @@ def check_kernels(rng):
 
 
 def check_plan_edges(close):
-    """wirelength2 and maxbbox against their plain versions at the edges of
-    their designs and at every row count of PLAN_ROWS, f32 and bf16,
-    directly and under `torch.func.vmap` (the row axis mapped)."""
+    """wirelength2, maxbbox and fused_eval against their plain versions at
+    the edges of their designs and at every row count of PLAN_ROWS, f32 and
+    bf16, directly and under `torch.func.vmap` (the row axis mapped); then
+    fused_eval at the largest G its plan takes."""
     import torch
 
-    from repro_torch.kernels import bbox, ref, wirelength
+    from repro_torch.kernels import bbox, fused_eval, ref, wirelength
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -409,15 +437,40 @@ def check_plan_edges(close):
                 xs = [coords(p, n).to(dtype) for _ in range(4)]
                 for w, rows in (((coords(n).abs() * 0.1).to(dtype), wl_rows),
                                 ((coords(p, n).abs() * 0.1).to(dtype), wl_rows_w)):
-                    want = ref.wirelength2_ref(*xs, w)
+                    want = plain(ref.wirelength2_ref, *xs, w)
                     close("wirelength2", wirelength.wirelength2(*xs, w), want, dtype)
                     close("wirelength2", rows(*xs, w), want, dtype)
         for u, b in BBOX_EDGE_UNITS:
             for p in PLAN_ROWS:
                 ux, uy = coords(p, u, b).to(dtype), coords(p, u, b).to(dtype)
-                want = ref.maxbbox_ref(ux, uy)
+                want = plain(ref.maxbbox_ref, ux, uy)
                 close("maxbbox", bbox.maxbbox(ux, uy), want, dtype)
                 close("maxbbox", bb_rows(ux, uy), want, dtype)
+        for g, n, u, b in FE_EDGE_SHAPES:
+            tabs = eval_tables(gen, g, n, u, b, dtype)
+            fe_rows = torch.func.vmap(lambda x, y: fused_eval.fused_eval(x, y, *tabs))
+            for p in PLAN_ROWS:
+                cx, cy = coords(p, g).to(dtype), coords(p, g).to(dtype)
+                want = plain(ref.fused_eval_ref, cx, cy, *tabs)
+                close("fused_eval", fused_eval.fused_eval(cx, cy, *tabs), want, dtype)
+                close("fused_eval", fe_rows(cx, cy), want, dtype)
+    g = fused_eval.MAX_GIDS
+    cx, cy = coords(2, g), coords(2, g)
+    tabs = eval_tables(gen, g, 3, 1, 1, torch.float32)
+    close("fused_eval", fused_eval.fused_eval(cx, cy, *tabs),
+          plain(ref.fused_eval_ref, cx, cy, *tabs), torch.float32)
+
+
+def eval_tables(gen, g, n, u, b, dtype):
+    """fused_eval's tables of `n` nets and `u` units of `b` blocks over `g`
+    gids on the card, drawn from `gen`: (src, dst, w, uidx)."""
+    import torch
+
+    def ints(*shape):
+        return torch.randint(0, g, shape, generator=gen, device="cuda", dtype=torch.int32)
+
+    w = (torch.rand(n, generator=gen, device="cuda") * 0.1).to(dtype)
+    return ints(n), ints(n), w, ints(u, b)
 
 
 def check_batch_invariance():
@@ -425,11 +478,12 @@ def check_batch_invariance():
     alone ([1, ...]), inside an [INVARIANCE_SLICE, ...] slice at another
     offset (unaligned where N is odd) and in the whole batch, directly and
     under vmap: wirelength2 at every N of WL_EDGE_NETS with w [N] and
-    [P, N], maxbbox at every (U, B) of BBOX_EDGE_UNITS, f32 and bf16.
-    Returns the number of rows checked."""
+    [P, N], maxbbox at every (U, B) of BBOX_EDGE_UNITS, fused_eval at every
+    (G, N, U, B) of FE_INVARIANCE_SHAPES, f32 and bf16.  Returns the number
+    of rows checked."""
     import torch
 
-    from repro_torch.kernels import bbox, wirelength
+    from repro_torch.kernels import bbox, fused_eval, wirelength
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows, width = INVARIANCE_ROWS, INVARIANCE_SLICE
@@ -457,12 +511,12 @@ def check_batch_invariance():
         # [4, width / 4, ...], each row alone as [1, 1, ...]
         parts.append(("under vmap, whole",
                       vfn(*(a.reshape(rows // width, width, *a.shape[1:]) for a in args))
-                      .reshape(rows), 0))
+                      .flatten(0, 1), 0))
         parts += [(f"under vmap, in the slice at {o}",
                    vfn(*(a[o:o + width].reshape(4, width // 4, *a.shape[1:]) for a in args))
-                   .reshape(width), o) for o in offsets]
+                   .flatten(0, 1), o) for o in offsets]
         parts.append(("alone under vmap", torch.cat(
-            [vfn(*(a[r:r + 1].unsqueeze(0) for a in args)).reshape(1) for r in range(rows)]), 0))
+            [vfn(*(a[r:r + 1].unsqueeze(0) for a in args)).flatten(0, 1) for r in range(rows)]), 0))
         same(what, full, parts)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -482,6 +536,14 @@ def check_batch_invariance():
                       for _ in range(2))
             check(f"maxbbox ({u}, {b}) {dtype}", bbox.maxbbox, torch.func.vmap(bbox.maxbbox),
                   [ux, uy])
+            checked += rows
+        for g, n, u, b in FE_INVARIANCE_SHAPES:
+            tabs = eval_tables(gen, g, n, u, b, dtype)
+            cx, cy = ((torch.randn(rows, g, generator=gen, device="cuda") * 50).to(dtype)
+                      for _ in range(2))
+            check(f"fused_eval ({g}, {n}, {u}, {b}) {dtype}",
+                  lambda x, y: fused_eval.fused_eval(x, y, *tabs),
+                  torch.func.vmap(lambda x, y: fused_eval.fused_eval(x, y, *tabs)), [cx, cy])
             checked += rows
     return checked
 
@@ -1598,18 +1660,21 @@ def time_ms(fn, iters=200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, symbol: str, iters: int = 50, traces: int = 3):
+def device_profile(fn, symbol: str, iters: int = 50, traces: int = 8):
     """(device ms, device ops) of one call of `fn`, from a torch.profiler
     trace: the kernels whose names hold `symbol` and every memset or copy
     the call issues besides (domination's launcher zeroes its counts with
     a memset above 256 rows), divided by the launches of `symbol`.  A trace
-    now and then comes back without the kernel's events; up to `traces`
-    are taken, and (None, None) means none of them showed it."""
+    now and then comes back without the kernel's events (three in a row
+    once); up to `traces` are taken, half a second apart, and (None, None)
+    means none of them showed it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(traces):
+    for attempt in range(traces):
+        if attempt:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -1626,7 +1691,7 @@ def device_profile(fn, symbol: str, iters: int = 50, traces: int = 3):
     return None, None
 
 
-def device_ms(fn, symbol: str, iters: int = 50, traces: int = 3):
+def device_ms(fn, symbol: str, iters: int = 50, traces: int = 8):
     """Device ms of one call of `fn`, as `device_profile` counts it."""
     return device_profile(fn, symbol, iters, traces)[0]
 
@@ -1655,8 +1720,7 @@ def kernel_calls(problem, bx, by, objs):
     return {
         "fused_eval": (lambda: fused_eval.fused_eval(bx, by, s, d, w, uidx),
                        lambda: ref.fused_eval_ref(bx, by, s, d, w, uidx),
-                       8 * p * g + 12 * n + 4 * u * b + 8 * p,
-                       p * (8 * n + 4 * u * b + 3 * u)),
+                       *eval_work(p, g, n, u, b)),
         "wirelength2": (lambda: wirelength.wirelength2(x1, y1, x2, y2, w),
                         lambda: ref.wirelength2_ref(x1, y1, x2, y2, w),
                         16 * p * n + 4 * n + 4 * p, 8 * p * n),
@@ -1785,17 +1849,23 @@ def slice_figures():
 
 
 def plan_figures(problem):
-    """wirelength2 and maxbbox at the main path's width (N = problem's nets;
-    U, B its units and blocks) and at the floor (N = FLOOR_NETS, (U, B) =
-    FLOOR_UNITS) over FIGURE_ROWS: per call (CUDA events), device time and
-    ops, bound and plain version."""
+    """wirelength2, maxbbox and fused_eval at the main path's width (N =
+    problem's nets; U, B its units and blocks; G its gids) and at the floor
+    (N = FLOOR_NETS, (U, B) = FLOOR_UNITS, (G, N, U, B) = FLOOR_EVAL) over
+    FIGURE_ROWS: per call (CUDA events), device time and ops, bound and
+    plain version."""
     import torch
 
-    from repro_torch.kernels import bbox, ref, wirelength
+    from repro_torch.core.tables import problem_tensors
+    from repro_torch.kernels import bbox, fused_eval, ref, wirelength
 
     n, u = problem.n_nets, problem.n_units
     b = problem.n_blocks // u
-    out = {"wirelength2": {}, "maxbbox": {}}
+    tabs = problem_tensors(problem, "cuda")
+    path_tabs = (tabs.net_src, tabs.net_dst, tabs.net_w, tabs.unit_index)
+    floor_tabs = eval_tables(torch.Generator(device="cuda").manual_seed(SEED), *FLOOR_EVAL,
+                             torch.float32)
+    out = {"wirelength2": {}, "maxbbox": {}, "fused_eval": {}}
 
     def record(name, key, kern, plain, nbytes, nops):
         bms, by_what = bound_ms(nbytes, nops)
@@ -1817,7 +1887,22 @@ def plan_figures(problem):
                    lambda ux=ux, uy=uy: bbox.maxbbox(ux, uy),
                    lambda ux=ux, uy=uy: ref.maxbbox_ref(ux, uy),
                    8 * p * uu * bb + 4 * p, p * (4 * uu * bb + 3 * uu))
+        for label, t in (("path", path_tabs), ("floor", floor_tabs)):
+            (g, nn), (uu, bb) = (problem.n_blocks if label == "path" else FLOOR_EVAL[0],
+                                 t[0].shape[0]), t[3].shape
+            bx, by = (torch.rand(p, g, device="cuda") * 100 for _ in range(2))
+            record("fused_eval", f"{label} [{p}, {g}]",
+                   lambda bx=bx, by=by, t=t: fused_eval.fused_eval(bx, by, *t),
+                   lambda bx=bx, by=by, t=t: ref.fused_eval_ref(bx, by, *t),
+                   *eval_work(p, g, nn, uu, bb))
     return out
+
+
+def eval_work(p, g, n, u, b):
+    """(bytes, operations) of fused_eval on [p, g] rows in f32: each row
+    read once, the tables once, [p, 2] written; ~8 flops a net and 4 a
+    block, 3 a unit."""
+    return 8 * p * g + 12 * n + 4 * u * b + 8 * p, p * (8 * n + 4 * u * b + 3 * u)
 
 
 def placement_cases(problem):
@@ -1841,7 +1926,7 @@ def placement_cases(problem):
     dev = bx.device
     out_p, out_fe = torch.empty(p, device=dev), torch.empty(p, 2, device=dev)
     dom = torch.empty(q, q, dtype=torch.bool, device=dev)
-    wl, bb = wirelength.plan(p, n), bbox.plan(p, u, b)
+    wl, bb, fe = wirelength.plan(p, n), bbox.plan(p, u, b), fused_eval.plan(p, g, n, u, b)
     return {
         "wirelength2": dict(
             call=lambda: wirelength.wirelength2(x1, y1, x2, y2, w),
@@ -1872,7 +1957,8 @@ def placement_cases(problem):
             empty=lambda: torch.empty(p, 2, dtype=torch.float32, device=dev),
             kernel=fused_eval.KERNEL,
             args=(bx.data_ptr(), by.data_ptr(), s.data_ptr(), d.data_ptr(), w.data_ptr(),
-                  uidx.data_ptr(), out_fe.data_ptr(), p, g, n, u, b)),
+                  uidx.data_ptr(), out_fe.data_ptr(), p, g, n, u, b, fe.threads,
+                  fe.unit_threads, fe.sub)),
         "domination": dict(
             call=lambda: domination.domination(objs), op=lambda: domination._op(objs),
             impl=lambda: domination._domination(objs), inputs=(objs,), floats=(objs,), ints=(),
@@ -1947,15 +2033,17 @@ def host_split(problem, iters: int = 1000):
 
 
 def launch_path(problem, iters: int = 1000):
-    """Per call of each placement wrapper at the main path's shape, and of
-    wirelength2 and maxbbox at 2048 rows and at the floor: host µs
-    (`time.perf_counter` over `iters` calls, no synchronisation), µs with
-    CUDA events back to back, and device µs and ops.  Only the public
-    wrappers are called, so the same function times another tree's port
-    (`--launch-path --src DIR`)."""
+    """Per call of each placement wrapper at the main path's shape, of
+    wirelength2, maxbbox and fused_eval at 2048 rows and at the floor, and
+    of fused_eval at the baselines' and the transfer's shapes: host
+    µs (`time.perf_counter` over `iters` calls, no synchronisation), µs with
+    CUDA events back to back, and device µs and ops (fused_eval must issue
+    one op per call).  Only the public wrappers are called, so the same
+    function times another tree's port (`--launch-path --src DIR`)."""
     import torch
 
     from repro_torch.core.tables import problem_tensors
+    from repro_torch.fpga import device, netlist
     from repro_torch.kernels import bbox, domination, fused_eval, wirelength
 
     tabs = problem_tensors(problem, "cuda")
@@ -1975,11 +2063,26 @@ def launch_path(problem, iters: int = 1000):
     floor = [torch.rand(p, FLOOR_NETS, device="cuda") for _ in range(5)]
     ubig = [torch.rand(2048, u, b, device="cuda") for _ in range(2)]
     ufloor = [torch.rand(p, *FLOOR_UNITS, device="cuda") for _ in range(2)]
+    # fused_eval at 2048 rows of the path's width, at the floor (64 rows),
+    # at the baselines' rows and at the transfer's width and rows
+    gbig = [torch.rand(2048, g, device="cuda") for _ in range(2)]
+    gfloor = [torch.rand(p, FLOOR_EVAL[0], device="cuda") for _ in range(2)]
+    ftabs = eval_tables(torch.Generator(device="cuda").manual_seed(SEED), *FLOOR_EVAL,
+                        torch.float32)
+    for rows in (1, CMAES_POP, GA_POP):
+        gx = [torch.rand(rows, g, device="cuda") for _ in range(2)]
+        calls[f"fused_eval [{rows}, {g}]"] = lambda gx=gx: fused_eval.fused_eval(*gx, s, d, w, uidx)
+    dst_tabs = problem_tensors(netlist.make_problem(device.get_device(TRANSFER_DST)), "cuda")
+    t9 = (dst_tabs.net_src, dst_tabs.net_dst, dst_tabs.net_w, dst_tabs.unit_index)
+    g9 = [torch.rand(TRANSFER_POP, dst_tabs.unit_index.numel(), device="cuda") for _ in range(2)]
+    calls[f"fused_eval [{TRANSFER_POP}, {g9[0].shape[1]}]"] = lambda: fused_eval.fused_eval(*g9, *t9)
     calls.update({
         f"wirelength2 [2048, {n}]": lambda: wirelength.wirelength2(*big, w),
         f"wirelength2 [{p}, {FLOOR_NETS}]": lambda: wirelength.wirelength2(*floor[:4], floor[4][0]),
         f"maxbbox [2048, {u}, {b}]": lambda: bbox.maxbbox(*ubig),
-        f"maxbbox [{p}, {FLOOR_UNITS[0]}, {FLOOR_UNITS[1]}]": lambda: bbox.maxbbox(*ufloor)})
+        f"maxbbox [{p}, {FLOOR_UNITS[0]}, {FLOOR_UNITS[1]}]": lambda: bbox.maxbbox(*ufloor),
+        f"fused_eval [2048, {g}]": lambda: fused_eval.fused_eval(*gbig, s, d, w, uidx),
+        f"fused_eval [{p}, {FLOOR_EVAL[0]}]": lambda: fused_eval.fused_eval(*gfloor, *ftabs)})
     out = {}
     for name, fn in calls.items():
         for _ in range(10):
@@ -1991,6 +2094,9 @@ def launch_path(problem, iters: int = 1000):
         host = (time.perf_counter() - t0) / iters * 1e6
         torch.cuda.synchronize()
         dev, ops = device_profile(fn, SYMBOLS[name.split()[0]])
+        if name.startswith("fused_eval") and ops != 1.0:
+            raise AssertionError(f"{name}: {ops} device ops per call, expected 1 "
+                                 "(None: no trace showed the kernel)")
         out[name] = dict(host_us=host, event_us=time_ms(fn) * 1e3,
                          device_us=None if dev is None else dev * 1e3, device_ops=ops)
     return out
@@ -2354,8 +2460,8 @@ def main() -> int:
           f"max abs err (f32) {errs}")
     t0 = time.perf_counter()
     n_rows = check_batch_invariance()
-    print(f"batch invariance: {n_rows} rows of wirelength2 and maxbbox alone, in a slice and "
-          f"in a batch of {INVARIANCE_ROWS}, directly and under vmap, bit for bit "
+    print(f"batch invariance: {n_rows} rows of wirelength2, maxbbox and fused_eval alone, in a "
+          f"slice and in a batch of {INVARIANCE_ROWS}, directly and under vmap, bit for bit "
           f"({time.perf_counter() - t0:.1f} s)")
 
     # phase 3: the main path, unfused then fused
@@ -2616,10 +2722,10 @@ def main() -> int:
             ops = [row["device_ops"], row["device_ops_2048"],
                    *(v["device_ops"] for v in row["shapes"].values()),
                    *(v["device_ops"] for v in row["rows"].values())]
-            if any(o is not None and o != 1.0 for o in ops):
-                raise AssertionError(f"{row['name']}: device ops per call {ops}, expected 1")
-            print(f"{row['name']}: 1 device op per call at all {len(ops)} reported shapes "
-                  f"({sum(o is None for o in ops)} traces without the kernel)")
+            if any(o != 1.0 for o in ops):
+                raise AssertionError(f"{row['name']}: device ops per call {ops}, expected 1 "
+                                     "(None: no trace showed the kernel)")
+            print(f"{row['name']}: 1 device op per call at all {len(ops)} reported shapes")
     for name, per_shape in plans.items():
         for key, v in per_shape.items():
             print(f"{name} at {key}: {v['ms']:.4f} ms per call, device {v['device_ms']} ms in "
