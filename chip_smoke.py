@@ -8,8 +8,9 @@
    the sweep shapes and the main paths' shapes (SA's 1 row, CMA-ES's 24,
    the xcvu9p width), in f32 and bf16 (flash
    attention over the reference's test grid, the serving path's prefill
-   shapes, gemma3's D = 256 under a window and the tile edges of its
-   tensor-core routes; domination bitwise, at the edges of its tiles too,
+   shapes, gemma3's D = 256 under a window, the tile edges of its
+   tensor-core routes and head dims 16 and 96, zero-padded to the next
+   variant's; domination bitwise, at the edges of its tiles too,
    and with its batch axis, B in {1, 2, 4, 8, 12, 16} x P in {16, 32, 64,
    128} (DOM_BATCHES x DOM_BATCH_SIZES), directly and under
    `torch.func.vmap`; the evaluation kernels under vmap; wirelength2 at N
@@ -76,6 +77,17 @@
    and a second process that finds every kernel library built; 16 asyncio
    clients through the front-end, one cancelled, against a sequential
    scheduler; and the launcher with every control-plane flag.
+   Then the paper's runners (`repro_torch.benchmarks`) at their quick
+   budgets: Table I on xcvu11p (all five methods), Table II xcvu3p ->
+   xcvu5p, xcvu7p and xcvu9p, Figs. 7 and 9 on xcvu11p and Fig. 8 at
+   FIG8_STEPS steps a chain, each in one counted window with exact
+   launches; every champion legal, every history non-increasing,
+   evaluations = generations x population, Table II's warm start at or
+   below scratch in its first generation on every target.  Then every
+   example (`repro_torch.examples`) at its own defaults: its key lines and
+   its launches (exact for placement_transfer, and for serve_lm, whose
+   reduced yi-6b runs flash attention at D = 16 padded to 64; the others
+   launch the unfused path's kernels and no other).
    Then serves yi-6b at full width (fp32, weights from seed 0) through
    `repro_torch.serve.engine.Engine`: 8 requests of 77-2048 prompt tokens
    and 32 new tokens each over 4 slots, with the launch counters set to 0
@@ -145,7 +157,11 @@ FLASH_CASES = ([(b, h, hkv, s, s, d, None, 0.02) for b, h, hkv, s, d in (
                + [(1, 16, 8, 1500, 1500, 256, 1024, 1.0), (1, 4, 2, 100, 60, 128, None, 1.0)]
                + [(1, 4, 2, 190, 333, 128, None, 1.0), (1, 4, 2, 129, 1000, 64, None, 1.0),
                   (2, 8, 1, 257, 257, 128, None, 1.0),
-                  (1, 4, 2, 300, 300, 64, 100, 1.0), (1, 4, 2, 300, 300, 256, 100, 1.0)])
+                  (1, 4, 2, 300, 300, 64, 100, 1.0), (1, 4, 2, 300, 300, 256, 100, 1.0)]
+               # head dims no variant takes, zero-padded: the reduced configs'
+               # D = 16 at serve_lm's prompt lengths and under a window, and 96
+               + [(1, 4, 4, s, s, 16, None, 1.0) for s in (3, 8)]
+               + [(1, 4, 2, 64, 64, 16, 32, 1.0), (1, 4, 2, 100, 100, 96, None, 1.0)])
 # domination: the reference's sweep, the tile edges (P % 16 != 0 gives byte
 # stores; 256 x 16 tiles up to 256 rows, 64 x 64 tiles and a memset above)
 # and a size past the island batch
@@ -209,6 +225,9 @@ SVC_ISL_SLOTS, SVC_ISL_P, SVC_ISL_MIGRATE, SVC_ISL_BUDGET = 4, 4, 4, 12
 SVC_TRANSFER_BASE_POP, SVC_TRANSFER_BASE_GENS = 32, 100
 SVC_TRANSFER_POP, SVC_TRANSFER_BUDGET, SVC_TRANSFER_GENS_PER_STEP = 16, 40, 2
 SVC_TRANSFER_SEEDS = (0, 1, 2, 3)
+# the paper's runners at their quick budgets, Fig. 8 cut to FIG8_STEPS steps
+# a chain (fig8_cooling.QUICK_STEPS is 1500) for the phase's time
+FIG8_STEPS = 250
 # the control plane at xcvu11p full width: schedulers of CP_SLOTS-slot pools
 # at CP_GENS_PER_STEP; CP_NSGA_JOBS NSGA-II (pop 64) and CP_GA_JOBS GA jobs;
 # autoscaling CP_SLOTS -> CP_MAX_SLOTS on a queue of CP_AUTOSCALE_JOBS; Table
@@ -1644,6 +1663,225 @@ def run_cached(sch, reqs, metric):
     return [done[j] for j in jids]
 
 
+# ------------------------------------------------------------ phase 3g
+
+def non_increasing(what, hist):
+    """A history's best combined metric never rises."""
+    import torch
+
+    from repro_torch.core import objectives as O
+
+    comb = O.combined_metric(torch.as_tensor(hist).cpu())
+    if not (torch.isfinite(comb).all() and (comb[1:] <= comb[:-1]).all()):
+        raise AssertionError(f"{what}: history is not finite and non-increasing")
+
+
+def unfused(evals: int, ranks: int = 0):
+    """Launches of `evals` unfused evaluations and `ranks` NSGA-II sorts."""
+    return {"wirelength2": evals, "maxbbox": evals, "domination": ranks}
+
+
+def run_runners(kernels):
+    """Table I, Table II and Figs. 7-9 through `repro_torch.benchmarks` at
+    their quick budgets (Fig. 8 at FIG8_STEPS steps a chain), each in one
+    counted window; returns ({runner: result}, {runner: seconds}, paths)."""
+    import torch
+
+    from repro_torch.benchmarks import (fig7_convergence, fig8_cooling, fig9_pipelining,
+                                        table1, table2_transfer)
+    from repro_torch.core import objectives as O
+    from repro_torch.fpga import device, netlist
+
+    out, secs, paths = {}, {}, {}
+    problem = netlist.make_problem(device.get_device(FPGA_DEVICE))
+
+    # Table I: NSGA-II, NSGA-II reduced, CMA-ES, GA, then an SA chain
+    s = table1.QUICK_SCALE
+    gens = {"nsga2": int(table1.NSGA2_GENS * s), "nsga2_reduced": int(table1.NSGA2_GENS * s),
+            "cmaes": int(table1.CMAES_GENS * s), "ga": int(table1.GA_GENS * s),
+            "sa": int(table1.SA_STEPS * s)}
+    pops = {"nsga2": 48, "nsga2_reduced": 48, "cmaes": 24, "ga": 48, "sa": 1}
+    rows, secs["table1"], launches = counted(
+        kernels, lambda: table1.run(quick=True, dev=FPGA_DEVICE, torch_device="cuda"))
+    evals = sum(n + (k != "cmaes") for k, n in gens.items())
+    paths["table1"] = expect_launches("table1", launches,
+                                      unfused(evals, 2 * (gens["nsga2"] + gens["nsga2_reduced"])))
+    if sorted(rows) != sorted(table1.PAPER):
+        raise AssertionError(f"table1: methods {list(rows)}")
+    for name, row in rows.items():
+        if row["evaluations"] != gens[name] * pops[name] or row["history"].shape != (gens[name], 2):
+            raise AssertionError(f"table1 {name}: {row['evaluations']} evaluations, history "
+                                 f"{tuple(row['history'].shape)}")
+        non_increasing(f"table1 {name}", row["history"])
+        check_champion(problem, row["champion"], torch.tensor([row["wl2"], row["max_bbox"]]))
+    out["table1"] = rows
+
+    # Table II: xcvu3p, then scratch and warm on each target
+    n = table2_transfer.QUICK_GENS
+    rows, secs["table2"], launches = counted(
+        kernels, lambda: table2_transfer.run(quick=True, torch_device="cuda"))
+    runs = 1 + 2 * len(table2_transfer.TARGETS)
+    paths["table2"] = expect_launches("table2", launches, unfused(runs * (n + 1), runs * 2 * n))
+    if list(rows) != list(table2_transfer.TARGETS):
+        raise AssertionError(f"table2: targets {list(rows)}")
+    src = netlist.make_problem(device.get_device(table2_transfer.SEED_DEVICE))
+    for name, r in rows.items():
+        dst = netlist.make_problem(device.get_device(name))
+        O.assert_valid(src, r["g_seed"])
+        for k in ("scratch", "transfer"):
+            O.assert_valid(dst, r[f"g_{k}"])
+            non_increasing(f"table2 {name} {k}", r[f"hist_{k}"])
+            if r[f"evals_{k}"] % table2_transfer.POP or not 0 < r[f"evals_{k}"] <= n * table2_transfer.POP:
+                raise AssertionError(f"table2 {name}: evals_{k} {r[f'evals_{k}']}")
+        first = {k: float(r[f"hist_{k}"][0].prod()) for k in ("scratch", "transfer")}
+        if not first["transfer"] <= first["scratch"]:
+            raise AssertionError(f"table2 {name}: the warm start's first generation "
+                                 f"{first['transfer']} is worse than scratch's {first['scratch']}")
+        r["first"] = first
+    out["table2"] = rows
+
+    # Fig. 7: the four population methods and an SA chain
+    s = fig7_convergence.QUICK_SCALE
+    gens = {k: int(v * s) for k, v in fig7_convergence.GENS.items()}
+    n_sa = int(fig7_convergence.SA_STEPS * s)
+    hists, secs["fig7"], launches = counted(
+        kernels, lambda: fig7_convergence.run(quick=True, dev=FPGA_DEVICE, torch_device="cuda"))
+    evals = sum(v + (k != "cmaes") for k, v in gens.items()) + n_sa + 1
+    paths["fig7"] = expect_launches("fig7", launches,
+                                    unfused(evals, 2 * (gens["nsga2"] + gens["nsga2_reduced"])))
+    want = {**{k: (v, {"cmaes": 24}.get(k, 32)) for k, v in gens.items()}, "sa": (n_sa, 1)}
+    for name, (hist, per_gen) in hists.items():
+        if (len(hist), per_gen) != want.pop(name):
+            raise AssertionError(f"fig7 {name}: {len(hist)} rows of {per_gen}")
+        non_increasing(f"fig7 {name}", hist)
+    if want:
+        raise AssertionError(f"fig7: no history for {sorted(want)}")
+    out["fig7"] = hists
+
+    # Fig. 8: the four schedules x four parameter sets, FIG8_STEPS steps a chain
+    quick_steps = fig8_cooling.QUICK_STEPS
+    fig8_cooling.QUICK_STEPS = FIG8_STEPS
+    try:
+        rows, secs["fig8"], launches = counted(
+            kernels, lambda: fig8_cooling.run(quick=True, dev=FPGA_DEVICE, torch_device="cuda"))
+    finally:
+        fig8_cooling.QUICK_STEPS = quick_steps
+    chains = sum(len(v) for v in fig8_cooling.PARAM_SETS.values())
+    paths["fig8"] = expect_launches("fig8", launches, unfused(chains * (FIG8_STEPS + 1)))
+    if len(rows) != chains or not all(math.isfinite(r[4]) and r[4] > 0 for r in rows):
+        raise AssertionError(f"fig8: rows {rows}")
+    out["fig8"] = rows
+
+    # Fig. 9: NSGA-II, CMA-ES, SA and a random genotype, then the depth sweep
+    s = fig9_pipelining.QUICK_SCALE
+    g_n, g_c, n_sa = (int(v * s) for v in (fig9_pipelining.NSGA2_GENS,
+                                           fig9_pipelining.CMAES_GENS, fig9_pipelining.SA_STEPS))
+    (prob9, placements), secs["fig9"], launches = counted(
+        kernels, lambda: fig9_pipelining.best_placements(quick=True, dev=FPGA_DEVICE,
+                                                         torch_device="cuda"))
+    paths["fig9"] = expect_launches("fig9", launches, unfused(g_n + 1 + g_c + n_sa + 1, 2 * g_n))
+    sweeps = fig9_pipelining.sweeps(prob9, placements)
+    for name, g in placements.items():
+        O.assert_valid(prob9, g)
+        mhz = [sweeps[name][d]["freq_mhz"] for d in range(5)]
+        if mhz != sorted(mhz):
+            raise AssertionError(f"fig9 {name}: MHz by depth {mhz}")
+    out["fig9"] = sweeps
+    return out, secs, paths
+
+
+def print_runners(paper, secs, by_path):
+    """The runners' tables, as each runner's `report` prints them (Fig. 7:
+    each method's first and last generation), with seconds and launches."""
+    import io
+
+    from repro_torch.benchmarks import fig8_cooling, fig9_pipelining, table1, table2_transfer
+
+    def indented(report, result):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            report(result)
+        for line in text.getvalue().splitlines():
+            if line:
+                print(f"    {line}")
+
+    rows = paper["table1"]
+    print(f"  Table I on {FPGA_DEVICE} ({secs['table1']:.3f} s; launches {by_path['table1']}):")
+    indented(table1.report, rows)
+    print("    runtime against the paper's: " + ", ".join(
+        f"{k} {v['runtime_s']:.3f} s / {table1.PAPER[k][0]} s" for k, v in rows.items()))
+    print(f"  Table II ({secs['table2']:.3f} s; launches {by_path['table2']}):")
+    indented(table2_transfer.report, paper["table2"])
+    for name, r in paper["table2"].items():
+        print(f"    {name}: speedup {r['speedup']:.2f}, MHz delta "
+              f"{r['mhz_transfer'] - r['mhz_scratch']:+.3f} "
+              f"({100 * (r['mhz_transfer'] / r['mhz_scratch'] - 1):+.2f}%), first-generation best "
+              f"scratch {r['first']['scratch']:.4e}, warm {r['first']['transfer']:.4e}")
+    print(f"  Fig. 7 ({secs['fig7']:.3f} s; launches {by_path['fig7']}):")
+    for name, (h, per_gen) in paper["fig7"].items():
+        print(f"    {name}: {len(h)} generations of {per_gen} evaluations; wl2, bbox "
+              f"{h[0, 0]:.4g}, {h[0, 1]:.1f} -> {h[-1, 0]:.4g}, {h[-1, 1]:.1f}; combined "
+              f"{h[0, 0] * h[0, 1]:.4e} -> {h[-1, 0] * h[-1, 1]:.4e}")
+    print(f"  Fig. 8 ({secs['fig8']:.3f} s, {FIG8_STEPS} steps a chain; launches "
+          f"{by_path['fig8']}):")
+    indented(fig8_cooling.report, paper["fig8"])
+    print(f"  Fig. 9 ({secs['fig9']:.3f} s; launches {by_path['fig9']}):")
+    indented(fig9_pipelining.report, paper["fig9"])
+
+
+# example -> lines its output at its defaults must hold
+EXAMPLES = {
+    "placement_service": ("1 step compile(s)", "champion placement validated legal"),
+    "placement_transfer": ("seed champion: wl2=", "xcvu9p: migrated seed wl2="),
+    "placement_islands": ("(identical to single-population: True)",),
+    "placement_cache": ("0 generations, no slot burned", "a fresh store reloads 2"),
+    "placement_fleet": ("fleet: 9 jobs across 9 pools", "every pool stepped at one slot count"),
+    "placement_async": ("submit->result latency:", "sizes/step-compiles [4]x1"),
+    "serve_lm": ("arch=yi-6b slots=4 requests=6", "tokens in "),
+}
+
+
+def run_examples(kernels):
+    """Every example's main() on the card at its own defaults, each in one
+    counted window; returns ({example: (seconds, output)}, paths)."""
+    import importlib
+    import io
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.examples import placement_transfer
+
+    out, paths = {}, {}
+    for name, lines in EXAMPLES.items():
+        main = importlib.import_module(f"repro_torch.examples.{name}").main
+        text = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(text):
+                main([])
+
+        _, dt, launches = counted(kernels, run)
+        text = text.getvalue()
+        missing = [line for line in lines if line not in text]
+        if missing:
+            raise AssertionError(f"{name}: output lacks {missing}:\n{text}")
+        if name == "serve_lm":      # one prefill of each of its 6 requests
+            want = {"flash_attention": get_reduced("yi-6b").n_layers * 6}
+        elif name == "placement_transfer":
+            # the seed run, then per target two evaluations, the seeded
+            # population's and GENS // 4 generations
+            g, q = placement_transfer.GENS, placement_transfer.GENS // 4
+            want = unfused(g + 1 + 3 * (3 + q), 2 * g + 3 * 2 * q)
+        else:
+            # the number of generations depends on targets and timing: the
+            # path's kernels launch, and no other
+            want = {k: launches[k] for k in ("wirelength2", "maxbbox", "domination")}
+            if not all(want.values()):
+                raise AssertionError(f"{name}: kernels not launched: {launches}")
+        paths[f"example_{name}"] = expect_launches(name, launches, want)
+        out[name] = (dt, text)
+    return out, paths
+
+
 # ------------------------------------------------------------ phase 4
 
 def time_ms(fn, iters=200) -> float:
@@ -2661,6 +2899,18 @@ def main() -> int:
     print(f"  control-plane launcher: {cp['launcher']['lines']} "
           f"({cp['launcher']['seconds']:.3f} s; launches {by_path['control_plane_launcher']}); "
           f"the phase {time.perf_counter() - t0:.1f} s, by part (s) {cp['part_s']}")
+    print(f"[{time.perf_counter() - start:.1f} s] paper runners (repro_torch.benchmarks, quick "
+          f"budgets; Fig. 8 {FIG8_STEPS} steps a chain) and examples (repro_torch.examples)")
+    t0 = time.perf_counter()
+    paper, paper_s, paths = run_runners(kernels)
+    by_path.update(paths)
+    print_runners(paper, paper_s, by_path)
+    examples, paths = run_examples(kernels)
+    by_path.update(paths)
+    for name, (dt, text) in examples.items():
+        print(f"  example {name}: {dt:.3f} s; launches {by_path[f'example_{name}']}; "
+              f"last line: {text.strip().splitlines()[-1]}")
+    print(f"  the phase {time.perf_counter() - t0:.1f} s")
     print(f"[{time.perf_counter() - start:.1f} s] serving")
 
     # the serving path at full width: every prefill attention layer runs

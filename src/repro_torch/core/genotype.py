@@ -167,6 +167,10 @@ def random_genotype(problem: Problem, pop_size: int,
     return {"dist": tuple(dist), "loc": tuple(loc), "perm": tuple(perm)}
 
 
+def flat_dim(problem: Problem) -> int:
+    return problem.continuous_dim
+
+
 def flat_split(problem: Problem):
     """Static slices of the flat continuous vector."""
     sizes = []

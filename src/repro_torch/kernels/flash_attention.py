@@ -13,6 +13,10 @@ version gives NaN.
 as three TF32 tensor-core products per product, hi*hi + hi*lo + lo*hi)
 and `fma` (fp32 at D = 256 on the CUDA cores, where the tf32x3 tiles do
 not fit).  Each variant is its own C entry point, `flash_attention_<route>`.
+A head dim that no variant takes (the reduced configs' D = 16) is padded
+with zeros to the next one that does, as the Pallas kernel pads its tiles:
+zero columns of q and k add nothing to a logit, those of v give output
+columns that are sliced off, and the scale stays 1/sqrt(D).
 """
 from __future__ import annotations
 
@@ -42,11 +46,22 @@ def route(dtype: torch.dtype, d: int) -> str:
     return ROUTES[(dtype, d)]
 
 
+def padded_dim(dtype: torch.dtype, d: int) -> int:
+    """The smallest head dim >= d that a variant takes in `dtype`; raises
+    where none does."""
+    dims = [hd for (dt, hd) in ROUTES if dt == dtype and hd >= d]
+    if d < 1 or not dims:
+        raise ValueError(f"flash_attention: no kernel for {dtype} at head dim {d} "
+                         f"(dtypes bfloat16, float32; head dims up to {HEAD_DIMS[-1]})")
+    return min(dims)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None
                     ) -> torch.Tensor:
     """q [B, H, S, D]; k, v [B, Hkv, T, D] -> [B, H, S, D] in q's dtype.
-    CUDA tensors only; D in HEAD_DIMS, window None or >= 1."""
+    CUDA tensors only; D <= 256 (padded to a variant's), window None or
+    >= 1."""
     check_inputs("flash_attention", floats=(q, k, v))
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q must be [B, H, S, D] and k, v "
@@ -57,18 +72,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or h % hkv:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
                          f"q {tuple(q.shape)} (same B and D, H a multiple of Hkv)")
-    variant = route(q.dtype, d)
+    dp = padded_dim(q.dtype, d)
+    variant = route(q.dtype, dp)
     if t == 0:
         raise ValueError("flash_attention: k, v hold no key (T = 0)")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
         raise ValueError(f"flash_attention: B = {b}, H = {h} exceed the grid")
+    if dp != d:
+        q, k, v = (torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k, v))
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel():
         KERNEL.launch(q.dtype, q.device, q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), out.data_ptr(), b, h, hkv, s, t, d,
+                      v.data_ptr(), out.data_ptr(), b, h, hkv, s, t, dp,
                       int(causal), window or 0, 1.0 / math.sqrt(d), entry=variant)
-    return out
+    return out if dp == d else out[..., :d].contiguous()

@@ -131,3 +131,19 @@ def test_route_by_dtype_and_head_dim(dtype, d, want):
 def test_route_refuses_what_no_variant_takes(dtype, d):
     with pytest.raises(ValueError, match="no kernel"):
         tfa.route(dtype, d)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.float32, 16, 64), (torch.float32, 64, 64), (torch.float32, 96, 128),
+    (torch.float32, 200, 256), (torch.bfloat16, 16, 64), (torch.bfloat16, 129, 256),
+])
+def test_padded_dim_is_the_next_variant(dtype, d, want):
+    assert tfa.padded_dim(dtype, d) == want
+    tfa.route(dtype, want)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 257), (torch.float16, 16),
+                                     (torch.float32, 0)])
+def test_padded_dim_refuses_what_no_variant_takes(dtype, d):
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.padded_dim(dtype, d)
