@@ -95,7 +95,21 @@
    launch the flash-attention kernel, and the last-token prefill logits
    through the kernel must match those through the plain attention.  A
    torch.profiler trace of a pool decode step and of the longest prefill
-   gives their device busy share and top kernels.
+   gives their device busy share and top kernels (and flash attention's
+   device µs per launch in that prefill).
+   Then the other families (FAMILIES), one model at a time, each freed
+   before the next: deepseek-moe-16b at full width (28 layers, 64 routed
+   experts top-6 + 2 shared) with yi-6b's 8 requests, rwkv6-1.6b in full,
+   jamba-v0.1-52b at full width over one period (8 of 32 layers), and
+   reduced qwen2-moe, llava-next and musicgen; each with exact flash
+   launches (attention layers x requests), the shortest prompt's logits
+   through the kernel against the plain attention (and the (token,
+   layer) routes the two runs chose differently; llava and musicgen also
+   behind their stub frontend embeddings), for MoE models the dispatch
+   body against the dense one at one layer's hidden states from the
+   longest prompt, and a profile of a decode step (host syncs, the
+   host's time blocked in them) and of the longest prefill with the
+   share of each model span ("moe", "rwkv.wkv", "mamba.scan").
 4. Times each kernel and its plain version with CUDA events at the path's
    shapes, at the baselines' and the transfer's shapes, and at 2048 rows
    (and each call's device time from a
@@ -125,6 +139,7 @@ transfer's shapes), importing `repro_torch` from DIR (the
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -244,6 +259,26 @@ SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 2080, 32
 # kernel vs plain attention through the whole model: the per-layer fp32
 # differences (~1e-6 of the attention output) pass through 32 layers
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
+# the other families: deepseek-moe-16b at full width (the slice's main
+# path, 8 requests as yi-6b's); rwkv6-1.6b at full width and depth;
+# jamba-v0.1-52b at full width over one period (8 of 32 layers, for memory:
+# 32 layers are 206 GB in fp32); qwen2-moe, llava-next and musicgen reduced
+# (`get_reduced`).  (arch, reduced, n_layers or None, prompt lengths,
+# max_new, slots, the prompt whose prefill is traced); a jamba prompt past
+# 256 tokens is a multiple of 256.  rwkv's 512-token prefill issues 75k
+# device ops, whose trace takes the profiler minutes to read: its 128
+FAMILIES = (
+    ("deepseek-moe-16b", False, None, SERVE_PROMPTS, SERVE_MAX_NEW, SERVE_SLOTS, 2048),
+    ("rwkv6-1.6b", False, None, (512, 257, 128, 77), 16, 2, 128),
+    ("jamba-v0.1-52b", False, 8, (2048, 512, 256, 77), 16, 2, 2048),
+    ("qwen2-moe-a2.7b", True, None, (48, 33, 17, 9), 8, 2, 48),
+    ("llava-next-34b", True, None, (48, 33, 17, 9), 8, 2, 48),
+    ("musicgen-large", True, None, (48, 33, 17, 9), 8, 2, 48),
+)
+# MoE dispatch against the dense body on the same routes: the same fp32
+# products summed in other orders (cuBLAS GEMMs of other shapes over
+# d_model and d_expert terms, up to 14336), as LOGITS_TOL
+MOE_TOL = dict(rtol=1e-4, atol=1e-4)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense
@@ -2345,7 +2380,6 @@ def profiled(fn, reps: int):
     per call, the device's busy share -- kernel time over wall time -- and
     the profile)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2356,9 +2390,20 @@ def profiled(fn, reps: int):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    kernels, busy_us = device_kernels(prof)
     return wall_us, len(kernels) / reps, (busy_us / wall_us if kernels else None), prof
+
+
+def device_kernels(prof):
+    """A profile's device ops -- its CUDA events less the model spans'
+    (`SPANS`) own device rows -- and their busy µs: the one rule that
+    `profiled`, `device_trace` and `serving_profile` count ops and busy
+    time by."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name not in SPANS]
+    return kernels, sum(e.time_range.elapsed_us() for e in kernels)
 
 
 def host_syncs(fn):
@@ -2386,7 +2431,6 @@ def device_trace(fn):
     add nothing to the trace's read-back and slow the host less, so the
     busy share reads higher than `profiled`'s."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2396,8 +2440,7 @@ def device_trace(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    kernels, busy_us = device_kernels(prof)
     return wall_us / 1e3, len(kernels), (busy_us / wall_us if kernels else None)
 
 
@@ -2474,25 +2517,25 @@ def plain_attention():
         ops.flash_attention = kernel_path
 
 
-def run_serving(kernels):
-    """Serve SERVE_PROMPTS through the Engine at full width; returns the
-    launches, figures and the model (for the logits check)."""
+def run_serving(kernels, cfg, prompt_lens=SERVE_PROMPTS, slots=SERVE_SLOTS,
+                max_len=SERVE_MAX_LEN, max_new=SERVE_MAX_NEW):
+    """Serve prompts of `prompt_lens` tokens through the Engine (weights
+    from seed SEED); returns the launches, figures and the model (for the
+    logits check)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.models.transformer import Transformer
     from repro_torch.serve.engine import Engine
 
-    cfg = get_arch(SERVE_ARCH)
     t0 = time.perf_counter()
     model = Transformer(cfg, device="cuda", dtype=torch.float32,
                         generator=torch.Generator(device="cuda").manual_seed(SEED))
-    eng = Engine(model, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, eos_id=-1)
+    eng = Engine(model, n_slots=slots, max_len=max_len, eos_id=-1)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in SERVE_PROMPTS]
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
 
     # Engine.generate's loop, with each prefill and each step timed (both
     # end in a host read of the sampled tokens, so the clock is synchronised)
@@ -2500,12 +2543,12 @@ def run_serving(kernels):
     for k in kernels.values():
         k.launches = 0
     queue, rid_of, results = list(range(len(prompts))), {}, {}
-    prefill_s, ttft_s, decode_s, decode_tokens = {}, {}, 0.0, 0
+    prefill_s, ttft_s, decode_s, decode_tokens, steps = {}, {}, 0.0, 0, 0
     start = time.perf_counter()
     while queue or eng.active.any():
         while queue:
             t0 = time.perf_counter()
-            rid = eng.submit(prompts[queue[0]], SERVE_MAX_NEW)
+            rid = eng.submit(prompts[queue[0]], max_new)
             if rid is None:
                 break
             t1 = time.perf_counter()
@@ -2516,6 +2559,7 @@ def run_serving(kernels):
         done = eng.step()
         decode_s += time.perf_counter() - t0
         decode_tokens += n_active
+        steps += 1
         for req in done:
             results[rid_of[req.rid]] = req.out
     wall_s = time.perf_counter() - start
@@ -2525,64 +2569,219 @@ def run_serving(kernels):
     if sorted(results) != list(range(len(prompts))):
         raise AssertionError(f"served {sorted(results)} of {len(prompts)} requests")
     for i, out in results.items():
-        if len(out) != SERVE_MAX_NEW or not all(0 <= t < cfg.vocab for t in out):
+        if len(out) != max_new or not all(0 <= t < cfg.vocab for t in out):
             raise AssertionError(f"request {i}: {len(out)} tokens, expected "
-                                 f"{SERVE_MAX_NEW} in [0, {cfg.vocab})")
+                                 f"{max_new} in [0, {cfg.vocab})")
     return dict(cfg=cfg, model=model, prompts=prompts, results=results,
-                launches=launches, init_s=init_s, wall_s=wall_s, peak_bytes=peak,
-                prefill_s=prefill_s, ttft_s=ttft_s, decode_s=decode_s,
-                decode_tokens=decode_tokens)
+                prompt_lens=tuple(prompt_lens), slots=slots, max_len=max_len,
+                max_new=max_new, launches=launches, init_s=init_s, wall_s=wall_s,
+                peak_bytes=peak, prefill_s=prefill_s, ttft_s=ttft_s, decode_s=decode_s,
+                decode_tokens=decode_tokens, steps=steps)
 
 
-def check_serving_logits(served):
-    """The last-token prefill logits of the longest and the shortest prompt
-    through the kernel and through the plain attention, on the card."""
+@contextlib.contextmanager
+def recorded_routes():
+    """Every MoE layer's top-k indices [T, k] in call order while open."""
+    from repro_torch.models import moe
+    routes, route = [], moe.MoE.route
+
+    def recording(self, xf):
+        out = route(self, xf)
+        routes.append(out[0])
+        return out
+
+    moe.MoE.route = recording
+    try:
+        yield routes
+    finally:
+        moe.MoE.route = route
+
+
+def check_serving_logits(served, lengths, frontend: bool = False):
+    """The last-token prefill logits of the prompts of `lengths` tokens
+    through the kernel and through the plain attention, on the card; with
+    `frontend`, also the shortest prompt behind the config's stub frontend
+    embeddings (`stubs.synth_frontend`, seed SEED).  For MoE models, how
+    many (token, layer) routes -- sets of top-k experts -- the two runs
+    chose differently."""
     import torch
-    model, prompts, results = served["model"], served["prompts"], served["results"]
+
+    from repro_torch.models import stubs
+
+    cfg, model, results = served["cfg"], served["model"], served["results"]
+    cases = [(n, None) for n in lengths]
+    if frontend:
+        fe = stubs.synth_frontend(torch.Generator(device="cuda").manual_seed(SEED),
+                                  cfg.frontend, 1, cfg.n_frontend_tokens, cfg.d_model,
+                                  torch.float32)
+        cases.append((min(lengths), fe))
     out = {}
-    for i in (SERVE_PROMPTS.index(max(SERVE_PROMPTS)), SERVE_PROMPTS.index(min(SERVE_PROMPTS))):
-        toks = torch.as_tensor(prompts[i], dtype=torch.long, device="cuda")[None]
-        kern = model.prefill(toks, toks.shape[1])[0][0]
-        with plain_attention():
-            plain = model.prefill(toks, toks.shape[1])[0][0]
+    for n, fe in cases:
+        i = served["prompt_lens"].index(n)
+        toks = torch.as_tensor(served["prompts"][i], dtype=torch.long, device="cuda")[None]
+        max_len = toks.shape[1] + (0 if fe is None else fe.shape[1])
+        with recorded_routes() as kern_routes:
+            kern = model.prefill(toks, max_len, fe)[0][0]
+        with plain_attention(), recorded_routes() as plain_routes:
+            plain = model.prefill(toks, max_len, fe)[0][0]
         torch.cuda.synchronize()
+        key = n if fe is None else f"{n}+{fe.shape[1]} frontend"
         if not torch.isfinite(kern).all():
-            raise AssertionError(f"prompt {i}: non-finite logits")
+            raise AssertionError(f"prompt {key}: non-finite logits")
+        flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                    for a, b in zip(kern_routes, plain_routes))
         torch.testing.assert_close(kern, plain, **LOGITS_TOL,
-                                   msg=lambda m: f"prompt of {toks.shape[1]} tokens: {m}")
-        if int(kern.argmax()) != int(plain.argmax()) or int(kern.argmax()) != results[i][0]:
-            raise AssertionError(f"prompt {i}: argmax kernel {int(kern.argmax())}, plain "
+                                   msg=lambda m: f"prompt of {key} tokens ({flips} routes "
+                                                 f"flipped): {m}")
+        if int(kern.argmax()) != int(plain.argmax()) or (
+                fe is None and int(kern.argmax()) != results[i][0]):
+            raise AssertionError(f"prompt {key}: argmax kernel {int(kern.argmax())}, plain "
                                  f"{int(plain.argmax())}, served {results[i][0]}")
-        out[toks.shape[1]] = dict(max_abs_diff=float((kern - plain).abs().max()),
-                                  max_abs_logit=float(plain.abs().max()),
-                                  argmax=int(kern.argmax()))
+        out[key] = dict(max_abs_diff=float((kern - plain).abs().max()),
+                        max_abs_logit=float(plain.abs().max()), argmax=int(kern.argmax()))
+        if kern_routes:
+            out[key].update(routes=sum(r.shape[0] for r in kern_routes), routes_flipped=flips)
     return out
 
 
-def serving_profile(served, reps: int = 3):
+def check_moe_bodies(served):
+    """One MoE layer (the middle one) at its real hidden states from the
+    longest prompt's prefill: `dispatch` (the model's body) against `dense`
+    (the reference's `_apply_reference`), fed the same routes."""
+    import torch
+
+    model = served["model"]
+    layers = [i for i, b in enumerate(model.blocks) if b.ffn == "moe"]
+    layer = layers[len(layers) // 2]
+    block = model.blocks[layer].moe
+    seen = []
+    hook = block.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+    toks = torch.as_tensor(served["prompts"][served["prompt_lens"].index(
+        max(served["prompt_lens"]))], dtype=torch.long, device="cuda")[None]
+    try:
+        model.prefill(toks, toks.shape[1])
+    finally:
+        hook.remove()
+    xf = seen[0].reshape(-1, seen[0].shape[-1])
+    with torch.no_grad():
+        inds, gates, _ = block.route(xf)
+        got = block.dispatch(xf, inds, gates)
+        want = block.dense(xf, inds, gates)
+    torch.testing.assert_close(got, want, **MOE_TOL,
+                               msg=lambda m: f"layer {layer} dispatch vs dense: {m}")
+    counts = torch.bincount(inds.reshape(-1), minlength=block.args.e_phys)
+    return dict(layer=layer, tokens=xf.shape[0], max_abs_diff=float((got - want).abs().max()),
+                max_abs_y=float(want.abs().max()), experts_used=int((counts > 0).sum()),
+                pairs_per_expert_min_max=(int(counts.min()), int(counts.max())))
+
+
+SPANS = ("moe", "rwkv.wkv", "mamba.scan")
+
+
+def serving_profile(served, reps: int = 3, prefill_len=None):
     """Where a serving step's time goes: a pool decode step (all slots
     active) and the longest prefill, each under torch.profiler -- host-clock
-    ms per call, the device's busy share, and the top kernels by device
-    time (ms per call)."""
+    ms per call, the device's busy share, the top kernels by device time
+    (ms per call), the host syncs of a decode step (and the host's time
+    blocked in them), each model span's (`SPANS`) share of device and host
+    time, and flash attention's device µs per launch.  `prefill_len`
+    picks another prompt than the longest for the prefill's trace."""
     import torch
+    from torch.autograd import DeviceType
 
     from repro_torch.serve.engine import Engine
 
-    model, prompts = served["model"], served["prompts"]
-    longest = prompts[SERVE_PROMPTS.index(max(SERVE_PROMPTS))]
-    eng = Engine(model, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, eos_id=-1)
-    for i in range(SERVE_SLOTS):
-        eng.submit(prompts[i], max_new=reps + 2)
+    model, prompts, lens = served["model"], served["prompts"], served["prompt_lens"]
+    longest = prompts[lens.index(prefill_len or max(lens))]
+    eng = Engine(model, n_slots=served["slots"], max_len=served["max_len"], eos_id=-1)
+    for i in range(served["slots"]):
+        eng.submit(prompts[i], max_new=reps + 3)
     toks = torch.as_tensor(longest, dtype=torch.long, device="cuda")[None]
     out = {}
     for name, fn in (("decode_step", eng.step),
-                     ("prefill_%d" % len(longest), lambda: model.prefill(toks, SERVE_MAX_LEN))):
+                     ("prefill_%d" % len(longest),
+                      lambda: model.prefill(toks, served["max_len"]))):
         wall_us, ops, busy, prof = profiled(fn, reps)
         top = sorted(((e.device_time_total, e.key) for e in prof.key_averages()
                       if e.device_time_total > 0), reverse=True)[:5]
-        out[name] = dict(ms=wall_us / reps / 1e3, device_ops=ops, device_busy_share=busy,
-                         top_kernels_ms={k[:70]: us / reps / 1e3 for us, k in top})
+        kernels, busy_us = device_kernels(prof)
+        v = dict(ms=wall_us / reps / 1e3, device_ops=ops, device_busy_share=busy,
+                 top_kernels_ms={k[:70]: us / reps / 1e3 for us, k in top})
+        for span in SPANS:
+            ev = [e for e in prof.events() if e.name == span and e.device_type == DeviceType.CPU]
+            if ev:
+                v[f"{span}_device_share"] = (sum(e.device_time_total for e in ev) / busy_us
+                                             if busy_us else None)
+                v[f"{span}_host_share"] = sum(e.cpu_time_total for e in ev) / wall_us
+        flash = [e for e in kernels if "flash_attention_kernel" in e.name]
+        if flash:
+            v["flash_kernel_us_per_launch"] = (sum(e.time_range.elapsed_us() for e in flash)
+                                               / len(flash))
+            v["flash_launches"] = len(flash) / reps
+        if name == "decode_step":
+            blocked = [e for e in prof.events() if e.device_type == DeviceType.CPU
+                       and e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")]
+            v["host_blocked_ms"] = sum(e.cpu_time_total for e in blocked) / reps / 1e3
+            v["host_syncs"] = host_syncs(fn)[1]
+        out[name] = v
     return out
+
+
+def print_profile(profile):
+    for name, v in profile.items():
+        extra = {k: v[k] for k in v if k not in ("ms", "device_ops", "device_busy_share",
+                                                "top_kernels_ms")}
+        print(f"  profile {name}: {v['ms']:.3f} ms per call, {v['device_ops']:.0f} device ops, "
+              f"device busy {v['device_busy_share']}; top kernels (ms per call) "
+              f"{v['top_kernels_ms']}; {json.dumps(extra)}")
+
+
+def run_family(kernels, arch, reduced, n_layers, prompt_lens, max_new, slots, profile_len):
+    """Serve one family's config through the Engine with exact flash
+    launches (attention layers x requests), check its logits through the
+    kernel against the plain attention (the shortest prompt, and behind the
+    stub frontend for llava / musicgen) and, for MoE models, the dispatch
+    body against the dense one; print its figures and profile (one traced
+    call each, the prefill of `profile_len` tokens).  Returns the launches
+    of the counted run."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, get_reduced
+
+    cfg = get_reduced(arch) if reduced else get_arch(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    served = run_serving(kernels, cfg, prompt_lens, slots, max(prompt_lens) + max_new, max_new)
+    model = served["model"]
+    n_attn = sum(b.mixer.startswith("attn") for b in model.blocks)
+    launches = expect_launches(f"serving {arch}", served["launches"],
+                               {"flash_attention": n_attn * len(prompt_lens)})
+    n_prompt = sum(prompt_lens)
+    kinds = {}
+    for b in model.blocks:
+        kinds[f"{b.mixer}+{b.ffn}"] = kinds.get(f"{b.mixer}+{b.ffn}", 0) + 1
+    print(f"serving {arch} ({'reduced' if reduced else 'full width'}: {cfg.n_layers} layers "
+          f"{kinds}, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.d_head}, "
+          f"d_ff {cfg.d_ff}, experts {cfg.n_routed} top-{cfg.top_k} + {cfg.n_shared} shared at "
+          f"{cfg.d_expert}, vocab {cfg.vocab}; {cfg.param_count()} params fp32, built in "
+          f"{served['init_s']:.3f} s): {len(prompt_lens)} requests {prompt_lens} over {slots} "
+          f"slots, max_len {served['max_len']}, max_new {max_new}; wall {served['wall_s']:.3f} s")
+    prefill_s = sum(served["prefill_s"].values())
+    print(f"  prefill: {n_prompt} tokens in {prefill_s:.4f} s, {n_prompt / prefill_s:.1f} "
+          f"tokens/s; by request (ms, TTFT ms): " + ", ".join(
+              f"{n}: {served['prefill_s'][i] * 1e3:.2f}, {served['ttft_s'][i] * 1e3:.2f}"
+              for i, n in enumerate(prompt_lens)))
+    print(f"  decode: {served['decode_tokens']} tokens in {served['decode_s']:.4f} s over "
+          f"{served['steps']} pool steps, {served['decode_tokens'] / served['decode_s']:.1f} "
+          f"tokens/s; flash_attention launches {launches['flash_attention']} (= {n_attn} x "
+          f"{len(prompt_lens)}); torch.cuda.max_memory_allocated {served['peak_bytes']} bytes")
+    if any(b.ffn == "moe" for b in model.blocks):
+        print(f"  MoE dispatch vs dense body on the same routes (tol {MOE_TOL}): "
+              f"{check_moe_bodies(served)}")
+    print(f"  last-token prefill logits, kernel vs plain attention (tol {LOGITS_TOL}): "
+          f"{check_serving_logits(served, (min(prompt_lens),), frontend=bool(cfg.frontend))}")
+    print_profile(serving_profile(served, reps=1, prefill_len=profile_len))
+    return launches
 
 
 def flash_figures(errs, launches):
@@ -2915,7 +3114,8 @@ def main() -> int:
 
     # the serving path at full width: every prefill attention layer runs
     # the flash kernel (n_layers per request) and nothing else launches
-    served = run_serving(kernels)
+    from repro_torch.configs import get_arch
+    served = run_serving(kernels, get_arch(SERVE_ARCH))
     cfg = served["cfg"]
     by_path["serving"] = expect_launches(
         "serving", served["launches"], {"flash_attention": cfg.n_layers * len(SERVE_PROMPTS)})
@@ -2936,15 +3136,22 @@ def main() -> int:
     print(f"  flash_attention launches {served['launches']['flash_attention']} "
           f"(= {cfg.n_layers} x {len(SERVE_PROMPTS)}); "
           f"torch.cuda.max_memory_allocated {served['peak_bytes']} bytes")
-    logit_check = check_serving_logits(served)
+    logit_check = check_serving_logits(served, (max(SERVE_PROMPTS), min(SERVE_PROMPTS)))
     print(f"  last-token prefill logits, kernel vs plain attention (tol {LOGITS_TOL}): "
           f"{logit_check}")
-    for name, v in serving_profile(served).items():
-        print(f"  profile {name}: {v['ms']:.3f} ms per call, {v['device_ops']:.0f} device ops, "
-              f"device busy {v['device_busy_share']}; top kernels (ms per call) "
-              f"{v['top_kernels_ms']}")
+    profile = serving_profile(served)
+    print_profile(profile)
+    flash_in_prefill = profile[f"prefill_{max(SERVE_PROMPTS)}"].get("flash_kernel_us_per_launch")
     del served
+    gc.collect()
     torch.cuda.empty_cache()
+
+    # the other families: MoE, hybrid mamba, RWKV, frontends
+    for spec in FAMILIES:
+        print(f"[{time.perf_counter() - start:.1f} s] serving {spec[0]}")
+        by_path[f"serving_{spec[0]}"] = run_family(kernels, *spec)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # phase 4: times, bounds, rank peeling
     print(f"[{time.perf_counter() - start:.1f} s] kernel figures")
@@ -2954,6 +3161,7 @@ def main() -> int:
                           "domination_counts", "flash_attention")}
     rows = kernel_figures(problem, runs[True]["coords"], runs[True]["objs"], errs, launches)
     rows.append(flash_figures(errs, launches["flash_attention"]))
+    rows[-1]["device_ms_in_prefill"] = None if flash_in_prefill is None else flash_in_prefill / 1e3
     shapes = slice_figures()
     plans = plan_figures(problem)
     split = host_split(problem)

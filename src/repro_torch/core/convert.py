@@ -10,10 +10,12 @@ state (CMA-ES, SA) is a flat dict of float32 arrays and 0-d scalars with
 int32 counters (`gen`, `k`), kept as such on both sides.
 
 The reference's LM parameters are a tree `{"embed", "ln_f", "head",
-"blocks": [per pattern position {"ln1", "attn": {wq, wk, wv, wo}, "ln2",
-"mlp": {wg, wu, wd}}]}` whose block leaves are stacked over periods; the
-port's `Transformer` holds one block per layer, layer `l` being position
-`l % period` of period `l // period`.  Both keep dense weights [d_in, d_out].
+"blocks": [per pattern position {"ln1", "attn" | "mamba", "ln2", "mlp" |
+"moe" (with "shared")} or {"rwkv": {"ln1", "ln2", "tm", "cm"}}]}` whose
+block leaves are stacked over periods; the port's `Transformer` holds one
+block per layer, layer `l` being position `l % period` of period
+`l // period`, and names each weight by its path in that tree.  Both keep
+dense weights [d_in, d_out] and expert weights [E, d_in, d_out].
 """
 from __future__ import annotations
 
@@ -73,13 +75,16 @@ def lm_params_from_numpy(cfg, params: Dict[str, Any], device="cpu",
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device).to(dtype)
 
+    def leaves(tree, prefix):
+        for name, a in tree.items():
+            if isinstance(a, dict):
+                yield from leaves(a, f"{prefix}{name}.")
+            else:
+                yield f"{prefix}{name}", a
+
     state = {name: t(params[name]) for name in ("embed", "ln_f", "head")}
     for layer in range(cfg.n_layers):
         block = params["blocks"][layer % cfg.period]
-        period = layer // cfg.period
-        for name in ("ln1", "ln2"):
-            state[f"blocks.{layer}.{name}"] = t(block[name][period])
-        for sub in ("attn", "mlp"):
-            for name, a in block[sub].items():
-                state[f"blocks.{layer}.{sub}.{name}"] = t(a[period])
+        for key, a in leaves(block, f"blocks.{layer}."):
+            state[key] = t(np.asarray(a)[layer // cfg.period])
     return state

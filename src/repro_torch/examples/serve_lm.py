@@ -4,9 +4,9 @@ Port of `examples/serve_lm.py`:
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch yi-6b] [--torch-device cpu]
 
-Builds the reduced config of the chosen arch (weights from seed 0),
-admits a mixed batch of prompts through a 4-slot engine, and reports
-per-request outputs plus decode throughput.
+Builds the reduced config of the chosen arch (any of the ten; weights
+from seed 0), admits a mixed batch of prompts through a 4-slot engine,
+and reports per-request outputs plus decode throughput.
 """
 import argparse
 import time

@@ -1,6 +1,6 @@
 """Serving launcher of the PyTorch port: an LM engine or the placement service.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b [--reduced]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch <any of configs.ARCHS> [--reduced]
         [--requests 4] [--max-new 16] [--torch-device cuda|cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --placement \
         [--device xcvu_test] [--slots 8] [--pop 32] [--gens 64] \
@@ -12,8 +12,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --placement --frontend \
         [--requests 16] [--max-queue 8] [--cancel-every 5]
 
-The LM branch of `repro/launch/serve.py`: builds `--arch` (full width, or
-its reduced smoke-test variant) in fp32 with weights drawn from seed 0,
+The LM branch of `repro/launch/serve.py`: builds `--arch` (any of the ten:
+dense, MoE, hybrid mamba, RWKV or a frontend backbone; full width, or its
+reduced smoke-test variant) in fp32 with weights drawn from seed 0,
 serves `--requests` random prompts of 4-10 tokens (numpy `default_rng(0)`)
 through an `Engine` with max(2, requests // 2) slots and max_len 96, and
 prints one `reqN:` line of generated tokens per request.
@@ -373,7 +374,7 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--torch-device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--dry-run", action="store_true",
-                    help="not ported yet (ROADMAP queue 1 item 11)")
+                    help="not ported yet (ROADMAP queue 1 item 11.5)")
     # placement-service mode
     ap.add_argument("--placement", action="store_true",
                     help="serve placement jobs instead of an LM")
@@ -469,7 +470,7 @@ def main(argv=None) -> None:
         return
     if args.dry_run:
         raise NotImplementedError("--dry-run: the dry-run is not ported yet "
-                                  "(ROADMAP queue 1 item 11)")
+                                  "(ROADMAP queue 1 item 11.5)")
     if args.arch is None:
         ap.error("--arch is required")
 

@@ -81,8 +81,7 @@ class Attention(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.args = args
-        for name, spec in specs(args).items():
-            setattr(self, name, M.param(spec, generator, device, dtype))
+        M.build(self, specs(args), generator, device, dtype)
 
     def _project_qkv(self, x: torch.Tensor, positions: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

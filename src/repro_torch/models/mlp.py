@@ -25,8 +25,7 @@ class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, *, device,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None):
         super().__init__()
-        for name, spec in specs(d_model, d_ff).items():
-            setattr(self, name, M.param(spec, generator, device, dtype))
+        M.build(self, specs(d_model, d_ff), generator, device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return M.swiglu(x, self.wg, self.wu, self.wd)

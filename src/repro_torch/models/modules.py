@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +48,20 @@ def param(spec: ParamSpec, generator: Optional[torch.Generator], device,
         else:
             raise ValueError(spec.init)
     return torch.nn.Parameter(t.to(dtype))
+
+
+def build(module: torch.nn.Module, specs: Dict[str, Any],
+          generator: Optional[torch.Generator], device, dtype=torch.float32) -> None:
+    """Realise a tree of specs as `module`'s parameters, in the tree's order:
+    a leaf becomes a parameter of its name, a nested dict a submodule, so
+    the state dict's dotted names are the reference's tree paths."""
+    for name, spec in specs.items():
+        if isinstance(spec, dict):
+            sub = torch.nn.Module()
+            build(sub, spec, generator, device, dtype)
+            setattr(module, name, sub)
+        else:
+            setattr(module, name, param(spec, generator, device, dtype))
 
 
 # ------------------------------------------------------------- apply-side

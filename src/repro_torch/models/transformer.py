@@ -1,21 +1,24 @@
-"""Architecture config and the dense transformer: forward, prefill, decode.
+"""Architecture config and the model: forward, prefill, decode.
 
 Port of `repro/models/transformer.py`.  `ArchConfig` is the reference's,
 field for field, with its block pattern (`period`, `layer_kind`).  The
 model is an `nn.Module` holding `n_layers` blocks in order; layer `l` is
 pattern position `l % period` of period `l // period`, the order of the
-reference's scan over stacked per-position parameters.
+reference's scan over stacked per-position parameters.  A block is what
+`layer_kind` says: an RWKV block (its own norms inside), or a pre-norm
+attention or mamba mixer followed by an MoE or a dense SwiGLU FFN.
 
-Only attention mixers and the dense SwiGLU FFN are ported.  Building a
-model whose pattern holds a mamba or rwkv mixer or an MoE FFN, or that
-has a modality frontend, raises NotImplementedError naming its ROADMAP
-item; so does `param_count` for such a config.  `forward` has no
-rematerialisation and returns no MoE aux loss.
+`forward` and `prefill` take optional `frontend_embeds` [B, F, d] (the
+llava / musicgen stubs, `models/stubs.py`), prepended to the token
+embeddings as the reference's `_embed_inputs` does.  The per-layer
+serving state is the KV cache of an attention layer, the conv window and
+SSM state of a mamba layer, or the WKV state of an RWKV block.
+`forward` has no rematerialisation and returns logits only; the MoE
+layers' aux loss is returned by `moe.MoE` for training to use.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -23,14 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mamba, mlp, moe, rwkv
 from repro_torch.models import modules as M
-
-_NOT_PORTED = {
-    "mamba": "the mamba mixer (models/mamba.py)",
-    "rwkv": "the rwkv mixer (models/rwkv.py)",
-    "moe": "the MoE FFN (models/moe.py)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,30 +108,25 @@ class ArchConfig:
             rope_theta=self.rope_theta,
             window=self.window if local else None)
 
-    def check_ported(self) -> None:
-        """Raise NotImplementedError unless every block of the pattern and
-        the input path are ported."""
-        if self.frontend:
-            raise NotImplementedError(
-                f"{self.name}: the {self.frontend} frontend (models/stubs.py) "
-                f"is not ported yet (ROADMAP queue 1 item 11)")
-        for pos in range(self.period):
-            kind = self.layer_kind(pos)
-            for part in (kind["mixer"], kind["ffn"]):
-                if part in _NOT_PORTED:
-                    raise NotImplementedError(
-                        f"{self.name}: {_NOT_PORTED[part]} is not ported yet "
-                        f"(ROADMAP queue 1 item 11)")
+    def moe_args(self) -> moe.MoEArgs:
+        return moe.MoEArgs(
+            d_model=self.d_model, n_routed=self.n_routed, top_k=self.top_k,
+            d_expert=self.d_expert, n_shared=self.n_shared,
+            n_padded=self.n_padded)
+
+    def mamba_args(self) -> mamba.MambaArgs:
+        return mamba.MambaArgs(d_model=self.d_model, d_state=self.d_state)
+
+    def rwkv_args(self) -> rwkv.RWKVArgs:
+        return rwkv.RWKVArgs(d_model=self.d_model, d_ff=self.d_ff)
 
     def param_count(self) -> int:
-        self.check_ported()
-        n = 2 * self.vocab * self.d_model + self.d_model      # embed, head, ln_f
-        for layer in range(self.n_layers):
-            kind = self.layer_kind(layer % self.period)
-            specs = {**attention.specs(self.attn_args(kind["mixer"] == "attn_local")),
-                     **mlp.specs(self.d_model, self.d_ff)}
-            n += 2 * self.d_model + sum(math.prod(s.shape) for s in specs.values())
-        return n
+        """The reference's count: one period's blocks built without storage
+        (device "meta") times the periods, plus embed, head and ln_f."""
+        blocks = sum(p.numel() for pos in range(self.period)
+                     for p in Block(self, pos, device="meta", dtype=torch.float32,
+                                    generator=None).parameters())
+        return blocks * self.n_periods + 2 * self.vocab * self.d_model + self.d_model
 
 
 # ------------------------------------------------------------------ model
@@ -147,50 +139,74 @@ def _pad_cache(kv: torch.Tensor, max_len: int) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """Pre-norm attention + SwiGLU block at pattern position `pos`."""
+    """The block at pattern position `pos`: RWKV (its own channel-mix FFN),
+    or pre-norm attention / mamba followed by a pre-norm MoE or SwiGLU."""
 
     def __init__(self, cfg: ArchConfig, pos: int, *, device, dtype, generator):
         super().__init__()
-        self.eps = cfg.norm_eps
+        self.cfg = cfg
+        kind = cfg.layer_kind(pos)
+        self.mixer, self.ffn = kind["mixer"], kind["ffn"]
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        if self.mixer == "rwkv":
+            self.rwkv = rwkv.RWKV(cfg.rwkv_args(), **kw)
+            return
         ones = M.ParamSpec((cfg.d_model,), "ones")
-        local = cfg.layer_kind(pos)["mixer"] == "attn_local"
         self.ln1 = M.param(ones, generator, device, dtype)
-        self.attn = attention.Attention(cfg.attn_args(local), device=device,
-                                        dtype=dtype, generator=generator)
+        if self.mixer == "mamba":
+            self.mamba = mamba.Mamba(cfg.mamba_args(), **kw)
+        else:
+            self.attn = attention.Attention(cfg.attn_args(self.mixer == "attn_local"), **kw)
         self.ln2 = M.param(ones, generator, device, dtype)
-        self.mlp = mlp.MLP(cfg.d_model, cfg.d_ff, device=device, dtype=dtype,
-                           generator=generator)
+        if self.ffn == "moe":
+            self.moe = moe.MoE(cfg.moe_args(), **kw)
+        elif self.ffn == "mlp":
+            self.mlp = mlp.MLP(cfg.d_model, cfg.d_ff, **kw)
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.mlp(M.rmsnorm(x, self.ln2, self.eps))
+        h = M.rmsnorm(x, self.ln2, self.cfg.norm_eps)
+        return x + (self.moe(h)[0] if self.ffn == "moe" else self.mlp(h))
+
+    def _norm1(self, x: torch.Tensor) -> torch.Tensor:
+        return M.rmsnorm(x, self.ln1, self.cfg.norm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(M.rmsnorm(x, self.ln1, self.eps))
-        return self._ffn(x)
+        if self.mixer == "rwkv":
+            return self.rwkv(x, rwkv.init_state(self.cfg.rwkv_args(), x.shape[0], x.device))[0]
+        mixer = self.mamba if self.mixer == "mamba" else self.attn
+        return self._ffn(x + mixer(self._norm1(x)))
 
     def prefill(self, x: torch.Tensor, max_len: int
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        y, kv = self.attn.apply_and_cache(M.rmsnorm(x, self.ln1, self.eps))
-        cache = {k: _pad_cache(v, max_len) for k, v in kv.items()}
+        if self.mixer == "rwkv":
+            return self.rwkv(x, rwkv.init_state(self.cfg.rwkv_args(), x.shape[0], x.device))
+        if self.mixer == "mamba":
+            y, cache = self.mamba.apply_and_cache(self._norm1(x))
+        else:
+            y, kv = self.attn.apply_and_cache(self._norm1(x))
+            cache = {k: _pad_cache(v, max_len) for k, v in kv.items()}
         return self._ffn(x + y), cache
 
     def decode_step(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                     cache_len: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        y, cache = self.attn.decode_step(M.rmsnorm(x, self.ln1, self.eps),
-                                         cache, cache_len)
+        if self.mixer == "rwkv":
+            return self.rwkv(x, cache)
+        if self.mixer == "mamba":
+            y, cache = self.mamba.decode_step(self._norm1(x), cache)
+        else:
+            y, cache = self.attn.decode_step(self._norm1(x), cache, cache_len)
         return self._ffn(x + y), cache
 
 
 class Transformer(nn.Module):
-    """The dense LM of `cfg`, built on `device` (CUDA unless asked for the
-    CPU).  With a `generator` the weights are drawn from it; without one
-    they are left uninitialised for `load_state_dict`."""
+    """The LM of `cfg`, built on `device` (CUDA unless asked for the CPU).
+    With a `generator` the weights are drawn from it; without one they are
+    left uninitialised for `load_state_dict`."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda", dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        cfg.check_ported()
         device = resolve_device(device)
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype, generator=generator)
@@ -202,38 +218,57 @@ class Transformer(nn.Module):
         self.head = M.param(M.dense_spec(cfg.d_model, cfg.vocab, scale=0.02),
                             generator, device, dtype)
 
+    def _embed(self, tokens: torch.Tensor,
+               frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        x = self.embed[tokens]
+        if frontend_embeds is not None:
+            x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+        return x
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = M.rmsnorm(x, self.ln_f, self.cfg.norm_eps)
         return M.dense(x, self.head).float()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] -> logits [B, S, V] fp32."""
-        x = self.embed[tokens]
+    def forward(self, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [B, S] (after frontend_embeds [B, F, d], if given) ->
+        logits [B, F + S, V] fp32."""
+        x = self._embed(tokens, frontend_embeds)
         for block in self.blocks:
             x = block(x)
         return self._logits(x)
 
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16
                     ) -> List[Dict[str, torch.Tensor]]:
-        """One zero KV cache [batch, Hkv, max_len, dh] per layer."""
-        shape = (batch, self.cfg.n_kv_heads, max_len, self.cfg.d_head)
-        dev = self.embed.device
-        return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
-                for _ in self.blocks]
+        """Per layer, zero serving state: a KV cache [batch, Hkv, max_len,
+        dh] in `dtype`, a mamba cache (conv window in `dtype`, SSM state
+        fp32) or an RWKV state (fp32)."""
+        cfg, dev = self.cfg, self.embed.device
+        shape = (batch, cfg.n_kv_heads, max_len, cfg.d_head)
+        caches = []
+        for block in self.blocks:
+            if block.mixer == "rwkv":
+                caches.append(rwkv.init_state(cfg.rwkv_args(), batch, dev))
+            elif block.mixer == "mamba":
+                caches.append(mamba.init_cache(cfg.mamba_args(), batch, dtype, dev))
+            else:
+                caches.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                               "v": torch.zeros(shape, dtype=dtype, device=dev)})
+        return caches
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                frontend_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]], torch.Tensor]:
-        """Prefill the caches with full prompts [B, S]; returns (last-token
-        logits [B, V] fp32, per-layer caches padded to max_len, cache_len
-        [B] int32)."""
-        x = self.embed[tokens]
+        """Prefill the serving state with full prompts [B, S]; returns
+        (last-token logits [B, V] fp32, per-layer state with KV caches
+        padded to max_len, cache_len [B] int32 counting frontend tokens)."""
+        x = self._embed(tokens, frontend_embeds)
         caches = []
         for block in self.blocks:
             x, c = block.prefill(x, max_len)
             caches.append(c)
-        b, s = tokens.shape
+        b, s = x.shape[:2]
         cache_len = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
         return self._logits(x[:, -1]), caches, cache_len
 
@@ -241,9 +276,12 @@ class Transformer(nn.Module):
     def decode_step(self, token: torch.Tensor, caches: List[Dict[str, torch.Tensor]],
                     cache_len: torch.Tensor
                     ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
-        """token [B] -> (logits [B, V] fp32, caches updated in place).
-        cache_len [B]: the filled length, the same for every layer."""
+        """token [B] -> (logits [B, V] fp32, the updated per-layer state; KV
+        caches are written in place).  cache_len [B]: the filled length,
+        the same for every layer."""
         x = self.embed[token][:, None, :]
+        new = []
         for block, c in zip(self.blocks, caches):
-            x, _ = block.decode_step(x, c, cache_len)
-        return self._logits(x[:, 0]), caches
+            x, c = block.decode_step(x, c, cache_len)
+            new.append(c)
+        return self._logits(x[:, 0]), new

@@ -1,9 +1,14 @@
 """Batched serving engine: slot-based continuous batching over fixed caches.
 
-Port of `repro/serve/engine.py`.  A fixed pool of `n_slots` KV-cache rows
-is shared by all in-flight requests:
+Port of `repro/serve/engine.py`.  A fixed pool of `n_slots` rows of
+serving state -- per layer, KV rows for attention, the conv window and
+SSM state for mamba, the WKV state for RWKV -- is shared by all in-flight
+requests:
 
-  submit()  -> pick a free slot, prefill the prompt (batch 1) into it
+  submit()  -> pick a free slot, prefill the prompt (batch 1) into it,
+               each leaf cast to the pool's dtype (RWKV's token-shift
+               carries come out of a prefill in the model's dtype and sit
+               in an fp32 pool, as in the reference)
   step()    -> one decode for the whole pool; inactive slots are masked
   finished  -> slot freed (eos, per-request max_new, or a full cache)
 
@@ -65,7 +70,8 @@ class Engine:
         return req.rid
 
     def _prefill_into(self, req: Request) -> None:
-        """Prefill one prompt and copy its cache rows into the pool slot."""
+        """Prefill one prompt and copy its state rows into the pool slot
+        (`copy_` casts each to the pool leaf's dtype)."""
         toks = torch.as_tensor(req.prompt, dtype=torch.long, device=self.device)[None, :]
         logits, caches_1, clen_1 = self.model.prefill(toks, self.max_len)
         for pool, one in zip(self.caches, caches_1):
