@@ -51,6 +51,13 @@
    rounds of 5, patience 2); islands (P = 4, migrate every 5, 20
    generations) with their launches, P = 1 against `evolve.run` bit for
    bit, and BENCH_placement.json["islands"]'s gens to target on xcvu_test.
+   Then the same islands over ISL_WORLD = 2 processes spawned on the one
+   card (`torch.distributed` on gloo, a FileStore; ring exchanges staged
+   through the host): the gathered states and history against the
+   single-process run from the same seed, each rank's launches by the
+   single-process formula with P / 2 islands, ms per generation per rank
+   and host ms per ring exchange; and `evolve.run_islands` over the two
+   ranks (3 rounds x 4 generations: a finite history, a legal champion).
    Then the placement service's slot pool (`serve.placement_service`) at
    xcvu11p full width: 12 jobs of `make_job_specs` (pop 64, 20
    generations) through 8 slots at 4 generations per step, unfused and
@@ -110,6 +117,19 @@
    longest prompt, and a profile of a decode step (host syncs, the
    host's time blocked in them) and of the longest prefill with the
    share of each model span ("moe", "rwkv.wkv", "mamba.scan").
+   Then training (`train.trainer.Trainer`), the serving models freed
+   first: yi-6b at full width over TRAIN_LAYERS = 8 of its 32 layers
+   (fp32; batch 4 x 2048 of the synthetic pipeline), the first batch's
+   loss and every parameter's gradient through the kernel against plain
+   attention, then TRAIN_STEPS = 5 steps with flash launches exactly 2 per
+   attention layer a step (the forward and its remat recompute), finite
+   losses and norms, s per step, tokens/s, peak memory, a profiled step's
+   busy share and the share of the fp32 peak; one bf16 step at 2 layers
+   (the wgmma route) held against plain attention; reduced
+   deepseek-moe-16b, jamba-v0.1-52b and rwkv6-1.6b for 3 steps each;
+   `examples/train_lm` at its defaults (the loss falls), then with
+   --inject 150 (the recovered losses against the uninterrupted run's);
+   and the training launcher for 20 steps of reduced yi-6b.
 4. Times each kernel and its plain version with CUDA events at the path's
    shapes, at the baselines' and the transfer's shapes, and at 2048 rows
    (and each call's device time from a
@@ -279,6 +299,35 @@ FAMILIES = (
 # products summed in other orders (cuBLAS GEMMs of other shapes over
 # d_model and d_expert terms, up to 14336), as LOGITS_TOL
 MOE_TOL = dict(rtol=1e-4, atol=1e-4)
+# islands across processes: run_islands_phase's islands (ISL_P of pop POP,
+# migrate every ISL_MIGRATE, ISL_GENS generations) over ISL_WORLD ranks
+# spawned on the one card (gloo, host staging: NCCL takes one rank a card),
+# and evolve.run_islands over the ranks for ISL_DIST_ROUNDS rounds of
+# ISL_DIST_GENS_PER_ROUND generations; a rank that takes longer than
+# ISL_DIST_TIMEOUT_S fails the phase
+ISL_WORLD, ISL_DIST_ROUNDS, ISL_DIST_GENS_PER_ROUND, ISL_DIST_TIMEOUT_S = 2, 3, 4, 300
+# training: yi-6b at full width cut to TRAIN_LAYERS of 32 layers (fp32
+# params, master, m, v and gradients: 1.91 B x 20 bytes), TRAIN_STEPS steps
+# at TRAIN_BATCH x TRAIN_SEQ tokens; the first step's loss and every
+# gradient through the kernel against plain attention: the loss within
+# rtol TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_TOL of its own max
+# |g| (fp32 attention outputs differ by ~1e-6 between the two, and the
+# backward passes that through 8 layers and the head); then one step at
+# TRAIN_BF16_LAYERS layers in bf16 (the wgmma route), its loss within rtol
+# TRAIN_BF16_RTOL of plain attention's in bf16 (bf16 keeps 8 bits: each
+# rounding is up to 2^-8 of its value); reduced TRAIN_FAMILIES for
+# TRAIN_FAMILY_STEPS steps each; examples/train_lm at its defaults, then
+# with --inject TRAIN_LM_INJECT: its logged losses within rtol
+# TRAIN_LM_RTOL of the uninterrupted run's (the embedding's backward sums
+# in a fixed order and the two runs have been bit for bit on the card, but
+# nothing promises that every CUDA op is deterministic; the phase prints
+# whether they were); the launcher for TRAIN_LAUNCH_STEPS steps
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "yi-6b", 8, 5, 4, 2048
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+TRAIN_BF16_LAYERS, TRAIN_BF16_RTOL = 2, 1e-2
+TRAIN_FAMILIES = ("deepseek-moe-16b", "jamba-v0.1-52b", "rwkv6-1.6b")
+TRAIN_FAMILY_STEPS, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 3, 4, 64
+TRAIN_LM_INJECT, TRAIN_LM_RTOL, TRAIN_LAUNCH_STEPS = 150, 1e-2, 20
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense
@@ -1046,6 +1095,144 @@ def run_islands_phase(problem, kernels):
                                   islands_best=best_after(hi, ISL_BENCH_BUDGET),
                                   single_budget=ISL_BENCH_BUDGET, islands_budget=n_isl,
                                   single_s=dts, islands_s=dti)
+    return out, paths
+
+
+# ------------------------------------------------------------ phase 3d, across processes
+
+def islands_rank(rank, store_path, out_path):
+    """One rank of the islands-across-processes phase (a spawned process on
+    the card; the kernels come from the parent's build directory):
+    `evolve.run(islands=...)` through the default gloo group, then
+    `evolve.run_islands`, each with its launches counted; every ring
+    exchange's host time is recorded.  Saves its results to `out_path`."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import evolve, nsga2
+    from repro_torch.core import islands as TI
+    from repro_torch.fpga import device, netlist
+    from repro_torch.kernels import bbox, domination, wirelength
+    from repro_torch.runtime import compile_cache
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, ISL_WORLD), rank=rank,
+                            world_size=ISL_WORLD,
+                            timeout=datetime.timedelta(seconds=ISL_DIST_TIMEOUT_S))
+    try:
+        problem = netlist.make_problem(device.get_device(FPGA_DEVICE))
+        kernels = {"wirelength2": wirelength.KERNEL, "maxbbox": bbox.KERNEL,
+                   "domination": domination.KERNEL}
+        exchanges, exchange = [], TI.Ring.exchange
+
+        def timed(self, tree):
+            t0 = time.perf_counter()
+            out = exchange(self, tree)
+            exchanges.append(time.perf_counter() - t0)
+            return out
+
+        TI.Ring.exchange = timed
+        cfg, icfg = nsga2.NSGA2Config(pop_size=POP), TI.IslandConfig(ISL_P, ISL_MIGRATE)
+        # warm-up (the process's first CUDA, cuBLAS and kernel-library work),
+        # through the ring: migration fires after generation ISL_MIGRATE
+        evolve.run(problem, "nsga2", cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                   ISL_MIGRATE, islands=icfg, device="cuda")
+        exchanges.clear()
+        dist.barrier()
+        (st, hist), dt, launches = counted(kernels, lambda: evolve.run(
+            problem, "nsga2", cfg, torch.Generator(device="cuda").manual_seed(SEED + 30),
+            ISL_GENS, islands=icfg, device="cuda"))
+        dist.barrier()
+        (rst, rhist), rdt, rlaunches = counted(kernels, lambda: evolve.run_islands(
+            problem, "nsga2", cfg, torch.Generator(device="cuda").manual_seed(SEED + 32),
+            ISL_DIST_ROUNDS, ISL_DIST_GENS_PER_ROUND, group=dist.group.WORLD, device="cuda"))
+        cpu = torch.utils._pytree.tree_map(lambda a: a.cpu(), (st, hist, rst, rhist))
+        torch.save(dict(run=cpu[:2], run_islands=cpu[2:], seconds=dt, launches=launches,
+                        run_islands_seconds=rdt, run_islands_launches=rlaunches,
+                        exchanges=exchanges, nvcc_builds=compile_cache.meter().recompiles),
+                   out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_islands_dist_phase(problem, kernels):
+    """Islands across ISL_WORLD processes on the one card: their gathered
+    states and history against the single-process `evolve.run(islands=...)`
+    from the same seed (bit for bit, else integers exactly and floats
+    within tol, with the leaves that differ counted), each rank's launches
+    by the single-process formula with L = ISL_P / ISL_WORLD islands, ms per
+    generation per rank and host ms per ring exchange; then
+    `evolve.run_islands` over the ranks (finite history, a legal
+    champion).  A rank that fails or hangs fails the phase."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import evolve, nsga2
+    from repro_torch.core import islands as TI
+
+    cfg, icfg = nsga2.NSGA2Config(pop_size=POP), TI.IslandConfig(ISL_P, ISL_MIGRATE)
+    want, single_s, _ = counted(kernels, lambda: evolve.run(
+        problem, "nsga2", cfg, torch.Generator(device="cuda").manual_seed(SEED + 30), ISL_GENS,
+        islands=icfg, device="cuda"))
+    want = torch.utils._pytree.tree_map(lambda a: a.cpu(), want)
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(tmp) / f"rank{r}.pt" for r in range(ISL_WORLD)]
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=islands_rank, args=(r, str(Path(tmp) / "store"), str(outs[r])))
+                 for r in range(ISL_WORLD)]
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        deadline = t0 + ISL_DIST_TIMEOUT_S
+        for proc in procs:
+            proc.join(max(deadline - time.perf_counter(), 0))
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+        if hung or any(proc.exitcode != 0 for proc in procs):
+            raise AssertionError(f"islands across processes: ranks {hung} hung, exit codes "
+                                 f"{[proc.exitcode for proc in procs]}")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+    per = ISL_P // ISL_WORLD
+    out, paths = dict(wall_s=wall, single_ms_per_gen=single_s / ISL_GENS * 1e3, ranks=[]), {}
+    for r, res in enumerate(ranks):
+        got_l = torch.utils._pytree.tree_leaves(res["run"])
+        want_l = torch.utils._pytree.tree_leaves(want)
+        differ = sum(not torch.equal(a, b) for a, b in zip(got_l, want_l, strict=True))
+        if differ:
+            same_run(f"islands rank {r}", res["run"][0], want[0])
+            torch.testing.assert_close(res["run"][1], want[1], **tol(torch.float32))
+        paths[f"islands_{ISL_WORLD}proc_rank{r}"] = expect_launches(
+            f"islands rank {r}", res["launches"] | {"fused_eval": 0, "domination+counts": 0,
+                                                    "flash_attention": 0},
+            {"wirelength2": per + ISL_GENS, "maxbbox": per + ISL_GENS,
+             "domination": 2 * ISL_GENS})
+        n = ISL_DIST_ROUNDS * ISL_DIST_GENS_PER_ROUND
+        paths[f"run_islands_{ISL_WORLD}proc_rank{r}"] = expect_launches(
+            f"run_islands rank {r}", res["run_islands_launches"] | {
+                "fused_eval": 0, "domination+counts": 0, "flash_attention": 0},
+            {"wirelength2": 1 + n, "maxbbox": 1 + n, "domination": 2 * n})
+        rst, rhist = res["run_islands"]
+        if rhist.shape != (ISL_DIST_ROUNDS, ISL_WORLD, 2) or not torch.isfinite(rhist).all():
+            raise AssertionError(f"run_islands rank {r}: history not finite "
+                                 f"[{ISL_DIST_ROUNDS}, {ISL_WORLD}, 2]")
+        if r == 0:
+            g, objs = TI.best_genotype(problem, "nsga2", torch.utils._pytree.tree_map(
+                lambda a: a.cuda(), rst))
+            check_champion(problem, g, objs)
+        ex = res["exchanges"]
+        out["ranks"].append(dict(
+            leaves_differ=differ, leaves=len(want_l), ms_per_gen=res["seconds"] / ISL_GENS * 1e3,
+            exchanges=len(ex), exchange_ms_mean=sum(ex) / len(ex) * 1e3,
+            exchange_ms_max=max(ex) * 1e3, run_islands_s=res["run_islands_seconds"],
+            nvcc_builds=res["nvcc_builds"],
+            run_islands_best=float(rhist[-1].prod(-1).min())))
     return out, paths
 
 
@@ -2585,8 +2772,8 @@ def recorded_routes():
     from repro_torch.models import moe
     routes, route = [], moe.MoE.route
 
-    def recording(self, xf):
-        out = route(self, xf)
+    def recording(self, xf, *args):
+        out = route(self, xf, *args)
         routes.append(out[0])
         return out
 
@@ -2782,6 +2969,295 @@ def run_family(kernels, arch, reduced, n_layers, prompt_lens, max_new, slots, pr
           f"{check_serving_logits(served, (min(prompt_lens),), frontend=bool(cfg.frontend))}")
     print_profile(serving_profile(served, reps=1, prefill_len=profile_len))
     return launches
+
+
+# ------------------------------------------------------------ phase 3h
+
+def train_flops(model, batch: int, seq: int) -> float:
+    """The FLOPs of one rematerialised training step, counted from shapes,
+    not executed: 6 N T for the matmuls' forward and backward (N = the
+    blocks' and the head's matmul weights, T = batch x seq tokens), 2 N_b T
+    for the blocks' forward run again under remat (N_b = the blocks'
+    matmul weights), and per attention layer 16 B H D S(S + 1) / 2 (causal
+    QK^T and PV, 4 B H D per visible pair, for the forward, the remat
+    forward and the backward's two)."""
+    cfg, tokens = model.cfg, batch * seq
+    n_blocks = sum(p.numel() for n, p in model.named_parameters()
+                   if n.startswith("blocks.") and p.dim() >= 2)
+    n = n_blocks + model.head.numel()
+    n_attn = sum(b.mixer.startswith("attn") for b in model.blocks)
+    pairs = seq * (seq + 1) // 2
+    attn = n_attn * 16 * batch * cfg.n_heads * cfg.d_head * pairs
+    return 6 * n * tokens + 2 * n_blocks * tokens + attn
+
+
+def check_grads_against_plain(kernels, model, batch, what):
+    """The loss and every parameter's gradient through the kernel against
+    plain attention on the same weights and batch (TRAIN_LOSS_RTOL,
+    TRAIN_GRAD_TOL of each gradient's own max |g|); returns the figures and
+    the kernel run's launches."""
+    import torch
+
+    from repro_torch.train.train_step import loss_and_grads
+
+    (kloss, kmet, kgrads), _, launches = counted(kernels, lambda: loss_and_grads(model, batch))
+    with plain_attention():
+        ploss, pmet, pgrads = loss_and_grads(model, batch)
+    torch.testing.assert_close(kloss, ploss, rtol=TRAIN_LOSS_RTOL, atol=0,
+                               msg=lambda m: f"{what}: loss, kernel vs plain: {m}")
+    worst, worst_name = 0.0, None
+    for name, g in kgrads.items():
+        scale = float(pgrads[name].abs().max())
+        err = float((g - pgrads[name]).abs().max())
+        if not math.isfinite(err) or err > TRAIN_GRAD_TOL * max(scale, 1e-30):
+            raise AssertionError(f"{what}: gradient of {name}: max abs diff {err} against "
+                                 f"{TRAIN_GRAD_TOL} x max |g| {scale}")
+        if scale and err / scale >= worst:
+            worst, worst_name = err / scale, name
+    return dict(loss=float(kloss), plain_loss=float(ploss), xent=float(kmet["xent"]),
+                aux=float(kmet["aux"]),
+                grads=len(kgrads), worst_grad_rel=worst, worst_grad=worst_name), launches
+
+
+def run_training_phase(kernels):
+    """Training on the card (item 11.4): yi-6b at full width over
+    TRAIN_LAYERS layers, TRAIN_STEPS `Trainer` steps (kernel vs plain
+    attention on the first batch: the loss and every gradient; flash
+    launches 2 per attention layer a step; finite losses and norms; s per
+    step, tokens/s, peak memory, the device's busy share, the share of the
+    fp32 peak); one bf16 step at TRAIN_BF16_LAYERS; the reduced
+    TRAIN_FAMILIES; examples/train_lm at its defaults and with --inject;
+    the launcher."""
+    import dataclasses
+    import io
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch, get_reduced
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import batch_to
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    out, paths = {}, {}
+
+    def trainer(cfg, steps, batch, seq, dtype=None, lr=3e-4):
+        return Trainer(cfg, opt.OptConfig(lr=lr, warmup_steps=2, total_steps=steps),
+                       TrainerConfig(steps=steps, ckpt_every=0, log_every=1, param_dtype=dtype),
+                       DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=SEED),
+                       seed=SEED, device="cuda")
+
+    def finite(what, hist, steps):
+        if len(hist) != steps or not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                                         for h in hist):
+            raise AssertionError(f"{what}: history {hist}")
+
+    # (1) yi-6b at full width, TRAIN_LAYERS layers
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    tr = trainer(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = batch_to(tr.pipeline.batch(0), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    # the check's launches compare the kernel with its plain version: not a path's
+    check, check_launches = check_grads_against_plain(kernels, tr.model, batch, TRAIN_ARCH)
+    expect_launches(f"{TRAIN_ARCH} loss and gradients", check_launches,
+                    {"flash_attention": 2 * TRAIN_LAYERS})
+    check_peak = torch.cuda.max_memory_allocated()
+    step_fn, step_s = tr.train_step, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = step_fn(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return res
+
+    tr.train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    hist, dt, launches = counted(kernels, tr.run)
+    peak = torch.cuda.max_memory_allocated()
+    paths[f"train_{TRAIN_ARCH}"] = expect_launches(
+        f"{TRAIN_ARCH} training", launches, {"flash_attention": 2 * TRAIN_LAYERS * TRAIN_STEPS})
+    finite(TRAIN_ARCH, hist, TRAIN_STEPS)
+    if abs(hist[0]["loss"] - check["loss"]) > TRAIN_LOSS_RTOL * abs(check["loss"]):
+        raise AssertionError(f"first step's loss {hist[0]['loss']} against {check['loss']}")
+
+    def one_step():
+        tr.opt_state, _ = step_fn(tr.model, tr.opt_state, batch)
+
+    wall_us, ops, busy, prof = profiled(one_step, 1)
+    events, busy_us = device_kernels(prof)
+    if not busy_us:
+        raise AssertionError("no device op in the profiled training step")
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    flash_us = sum(us for n, us in by_name.items() if "flash_attention_kernel" in n)
+    gemm_us = sum(us for n, us in by_name.items() if "gemm" in n.lower())
+    steady = statistics.mean(step_s[1:])
+    flops = train_flops(tr.model, TRAIN_BATCH, TRAIN_SEQ)
+    out[TRAIN_ARCH] = dict(
+        layers=TRAIN_LAYERS, params=sum(p.numel() for p in tr.model.parameters()),
+        init_s=init_s, check=check, check_peak_bytes=check_peak, step_s=step_s,
+        steady_step_s=steady, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady, peak_bytes=peak,
+        losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+        profiled_step_ms=wall_us / 1e3, device_ops_per_step=ops, busy=busy, flops=flops,
+        fp32_peak_share=flops / steady / FP32_OPS_PER_S,
+        device_share=dict(gemm=gemm_us / busy_us, flash=flash_us / busy_us,
+                          rest=1 - (gemm_us + flash_us) / busy_us),
+        flash_us_per_launch=flash_us / (2 * TRAIN_LAYERS),
+        top_kernels=[(n[:70], us / busy_us) for n, us in top])
+    del tr, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) one bf16 step at TRAIN_BF16_LAYERS layers: the wgmma route
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_BF16_LAYERS)
+    tr = trainer(cfg, 1, TRAIN_BATCH, TRAIN_SEQ, dtype=torch.bfloat16)
+    batch = batch_to(tr.pipeline.batch(0), "cuda")
+    with torch.no_grad():
+        kern = float(T.loss_fn(tr.model, batch)[0])
+        with plain_attention():
+            plain_loss = float(T.loss_fn(tr.model, batch)[0])
+    if not abs(kern - plain_loss) <= TRAIN_BF16_RTOL * abs(plain_loss):
+        raise AssertionError(f"bf16 loss, kernel {kern} vs plain {plain_loss}")
+    hist, dt, launches = counted(kernels, tr.run)
+    paths[f"train_{TRAIN_ARCH}_bf16"] = expect_launches(
+        "bf16 training", launches, {"flash_attention": 2 * TRAIN_BF16_LAYERS})
+    finite("bf16", hist, 1)
+    out["bf16"] = dict(layers=TRAIN_BF16_LAYERS, loss=kern, plain_loss=plain_loss, step_s=dt,
+                       trained_loss=hist[0]["loss"], grad_norm=hist[0]["grad_norm"])
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) the reduced families
+    for name in TRAIN_FAMILIES:
+        cfg = get_reduced(name)
+        tr = trainer(cfg, TRAIN_FAMILY_STEPS, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, lr=1e-3)
+        n_attn = sum(b.mixer.startswith("attn") for b in tr.model.blocks)
+        row = dict(attention_layers=n_attn)
+        if n_attn:
+            batch = batch_to(tr.pipeline.batch(0), "cuda")
+            with torch.no_grad():
+                kern = T.loss_fn(tr.model, batch)[0]
+                with plain_attention():
+                    plain_loss = T.loss_fn(tr.model, batch)[0]
+            torch.testing.assert_close(kern, plain_loss, rtol=TRAIN_LOSS_RTOL, atol=0,
+                                       msg=lambda m: f"{name}: loss, kernel vs plain: {m}")
+            row.update(loss=float(kern), plain_loss=float(plain_loss))
+        hist, dt, launches = counted(kernels, tr.run)
+        paths[f"train_{name}"] = expect_launches(
+            f"{name} training", launches, {"flash_attention": 2 * n_attn * TRAIN_FAMILY_STEPS})
+        finite(name, hist, TRAIN_FAMILY_STEPS)
+        if cfg.n_routed and not all(h["aux"] > 0 for h in hist):
+            raise AssertionError(f"{name}: MoE aux {[h['aux'] for h in hist]}")
+        row.update(seconds=dt, losses=[h["loss"] for h in hist], aux=[h["aux"] for h in hist])
+        out[name] = row
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (4) examples/train_lm at its defaults, then with --inject
+    n_layers, steps = train_lm.model_100m().n_layers, 300
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, extra in (("", []), ("_inject", ["--inject", str(TRAIN_LM_INJECT)])):
+            text = io.StringIO()
+
+            def run():
+                with contextlib.redirect_stdout(text):
+                    return train_lm.main(["--ckpt-dir", f"{tmp}/run{tag}"] + extra)
+
+            hist, dt, launches = counted(kernels, run)
+            paths[f"example_train_lm{tag}"] = expect_launches(
+                f"train_lm{tag}", launches, {"flash_attention": 2 * n_layers * steps})
+            if "(OK: learning)" not in text.getvalue():
+                raise AssertionError(f"train_lm{tag}: not learning:\n{text.getvalue()}")
+            runs[tag] = (hist, dt, text.getvalue().strip().splitlines()[-1])
+    full, rec = runs[""][0], runs["_inject"][0]
+    if [h["step"] for h in rec] != [h["step"] for h in full]:
+        raise AssertionError(f"recovered steps {[h['step'] for h in rec]}")
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(rec, full))
+    if not rel <= TRAIN_LM_RTOL:
+        raise AssertionError(f"train_lm --inject: losses {rel} off the uninterrupted run's")
+    keys = ("loss", "grad_norm", "lr")
+    out["train_lm"] = dict(seconds=runs[""][1], inject_seconds=runs["_inject"][1],
+                           last_line=runs[""][2], inject_last_line=runs["_inject"][2],
+                           max_loss_rel_diff=rel, first=full[0]["loss"], last=full[-1]["loss"],
+                           bitwise=all(a[k] == b[k] for a, b in zip(rec, full) for k in keys),
+                           rows=len(full))
+
+    # (5) the launcher
+    text = io.StringIO()
+
+    def launch():
+        with contextlib.redirect_stdout(text):
+            launch_train.main(["--arch", TRAIN_ARCH, "--reduced", "--steps",
+                               str(TRAIN_LAUNCH_STEPS)])
+
+    _, dt, launches = counted(kernels, launch)
+    lines = text.getvalue().strip().splitlines()
+    paths["train_launcher"] = expect_launches("train launcher", launches, {
+        "flash_attention": 2 * get_reduced(TRAIN_ARCH).n_layers * TRAIN_LAUNCH_STEPS})
+    if not lines or f"'step': {TRAIN_LAUNCH_STEPS}," not in lines[-1]:
+        raise AssertionError(f"train launcher output:\n{text.getvalue()}")
+    out["launcher"] = dict(seconds=dt, last_line=lines[-1])
+    return out, paths
+
+
+def print_training(out, by_path):
+    v = out[TRAIN_ARCH]
+    print(f"  {TRAIN_ARCH} at full width, {v['layers']} of 32 layers ({v['params']} params; fp32 "
+          f"params, master, m, v, gradients), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"{TRAIN_STEPS} steps (built in {v['init_s']:.3f} s): loss {v['losses']}, grad norm "
+          f"{v['grad_norms']}")
+    c = v["check"]
+    print(f"    first batch, kernel vs plain attention: loss {c['loss']!r} vs {c['plain_loss']!r} "
+          f"(rtol {TRAIN_LOSS_RTOL}), {c['grads']} gradients each within {TRAIN_GRAD_TOL} of its "
+          f"max |g| (worst {c['worst_grad_rel']:.3e}, {c['worst_grad']}); peak "
+          f"{v['check_peak_bytes']} bytes")
+    print(f"    s per step {v['step_s']}, steady (steps 2-{TRAIN_STEPS}) "
+          f"{v['steady_step_s']:.4f} s, "
+          f"{v['tokens_per_s']:.1f} tokens/s; torch.cuda.max_memory_allocated {v['peak_bytes']} "
+          f"bytes; one step under the profiler {v['profiled_step_ms']:.1f} ms, "
+          f"{v['device_ops_per_step']:.0f} device ops, device busy {v['busy']}; FLOPs a step "
+          f"{v['flops']:.4e} (6 N T + 2 N_blocks T + 16 B H D S(S+1)/2 a layer), "
+          f"{v['fp32_peak_share']:.4f} of the fp32 peak (67 TFLOP/s); launches "
+          f"{by_path[f'train_{TRAIN_ARCH}']}")
+    print(f"    device time of the profiled step: GEMMs {v['device_share']['gemm']:.4f}, flash "
+          f"{v['device_share']['flash']:.4f} ({v['flash_us_per_launch']:.1f} µs a launch), the "
+          f"rest {v['device_share']['rest']:.4f}; top kernels {v['top_kernels']}")
+    v = out["bf16"]
+    print(f"  bf16, {v['layers']} layers: loss kernel {v['loss']!r} vs plain {v['plain_loss']!r} "
+          f"(rtol {TRAIN_BF16_RTOL}); one step {v['step_s']:.3f} s, loss {v['trained_loss']!r}, "
+          f"grad norm {v['grad_norm']!r}; launches {by_path[f'train_{TRAIN_ARCH}_bf16']}")
+    for name in TRAIN_FAMILIES:
+        v = out[name]
+        check = (f"loss kernel {v['loss']!r} vs plain {v['plain_loss']!r}; "
+                 if "loss" in v else "no attention; ")
+        print(f"  {name} reduced, {TRAIN_FAMILY_STEPS} steps at {TRAIN_FAMILY_BATCH} x "
+              f"{TRAIN_FAMILY_SEQ}: {check}losses {v['losses']}, aux {v['aux']}, "
+              f"{v['seconds']:.3f} s; launches {by_path[f'train_{name}']}")
+    v = out["train_lm"]
+    print(f"  example train_lm: {v['seconds']:.3f} s, {v['last_line']}; with --inject "
+          f"{TRAIN_LM_INJECT}: {v['inject_seconds']:.3f} s, {v['inject_last_line']}; logged "
+          f"losses within {v['max_loss_rel_diff']:.3e} (rtol {TRAIN_LM_RTOL}) of the "
+          f"uninterrupted run's, all {v['rows']} rows' loss, grad norm and lr bit for bit: "
+          f"{v['bitwise']}; launches {by_path['example_train_lm']}, "
+          f"{by_path['example_train_lm_inject']}")
+    v = out["launcher"]
+    print(f"  launcher --arch {TRAIN_ARCH} --reduced --steps {TRAIN_LAUNCH_STEPS}: "
+          f"{v['seconds']:.3f} s; {v['last_line']}; launches {by_path['train_launcher']}")
 
 
 def flash_figures(errs, launches):
@@ -3015,6 +3491,26 @@ def main() -> int:
           f"{ISL_BENCH_BUDGET} run in {v['islands_s']:.3f} s); best combined single after "
           f"{ISL_BENCH_BUDGET} gens {v['single_best']:.4e}, islands after {v['islands_budget']} "
           f"{v['islands_best_at_budget']:.4e} and after {ISL_BENCH_BUDGET} {v['islands_best']:.4e}")
+    print(f"[{time.perf_counter() - start:.1f} s] islands across {ISL_WORLD} processes (gloo, "
+          f"host staging) on the one card")
+    dist_islands, paths = run_islands_dist_phase(problem, kernels)
+    by_path.update(paths)
+    for r, v in enumerate(dist_islands["ranks"]):
+        print(f"  rank {r}: islands P = {ISL_P} ({ISL_P // ISL_WORLD} here), migrate every "
+              f"{ISL_MIGRATE}, pop {POP} x {ISL_GENS} gens: {v['ms_per_gen']:.3f} ms per gen; "
+              f"{v['exchanges']} ring exchanges, host {v['exchange_ms_mean']:.3f} ms mean, "
+              f"{v['exchange_ms_max']:.3f} max (the peer's wait included); gathered states and "
+              f"history vs the single-process run: {v['leaves'] - v['leaves_differ']} of "
+              f"{v['leaves']} leaves bit for bit"
+              f"{' (the rest: integers exact, floats within tol)' if v['leaves_differ'] else ''}; "
+              f"launches "
+              f"{by_path[f'islands_{ISL_WORLD}proc_rank{r}']}; run_islands {ISL_DIST_ROUNDS} x "
+              f"{ISL_DIST_GENS_PER_ROUND} gens in {v['run_islands_s']:.3f} s, best combined "
+              f"{v['run_islands_best']:.4e}, launches "
+              f"{by_path[f'run_islands_{ISL_WORLD}proc_rank{r}']}; nvcc builds "
+              f"{v['nvcc_builds']}")
+    print(f"  one process, the same {ISL_P} islands: {dist_islands['single_ms_per_gen']:.3f} ms "
+          f"per gen; the phase {dist_islands['wall_s']:.1f} s from spawn to the last join")
     print(f"[{time.perf_counter() - start:.1f} s] placement service: {SVC_JOBS} jobs x "
           f"{SVC_BUDGET} gens over {SVC_SLOTS} slots, {SVC_GENS_PER_STEP} gens per step")
     t0 = time.perf_counter()
@@ -3152,6 +3648,17 @@ def main() -> int:
         by_path[f"serving_{spec[0]}"] = run_family(kernels, *spec)
         gc.collect()
         torch.cuda.empty_cache()
+
+    # training: yi-6b at full width over TRAIN_LAYERS layers, bf16, the
+    # reduced families, the example and the launcher
+    print(f"[{time.perf_counter() - start:.1f} s] training")
+    t0 = time.perf_counter()
+    training, paths = run_training_phase(kernels)
+    by_path.update(paths)
+    print_training(training, by_path)
+    print(f"  the phase {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # phase 4: times, bounds, rank peeling
     print(f"[{time.perf_counter() - start:.1f} s] kernel figures")

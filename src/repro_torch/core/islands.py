@@ -16,6 +16,10 @@ per generation whatever P is.
     through migration.  `pool_round` advances S such slots as one batch
     (the placement service's islands pools).
   * `run` -- the full-run entry (`evolve.run(islands=...)` dispatches here).
+    Over a `torch.distributed` process group of W ranks (``group=``, or
+    the default group when it is initialised, W > 1 and W divides P) each
+    rank evolves its own L = P / W islands and the ring crosses ranks
+    through `Ring`; every rank returns the whole island-stacked result.
 
 Each island draws from its own `torch.Generator` (`island_generators`):
 with P == 1 that is the caller's generator unchanged, so ``islands(P=1)``
@@ -26,15 +30,28 @@ Population states replace their worst member; point states (CMA-ES, SA)
 adopt the incoming champion only when it beats their own best, restarting
 the mean / chain there.
 
-The reference's sharded ring (`shard_map` + `ppermute` over a mesh) is not
-ported: passing `mesh=` raises.
+Across processes, migration is the local roll plus one ring exchange
+(`Ring.exchange`): each rank posts an `isend` of its last island's
+champion to rank r + 1 and an `irecv` from rank r - 1, then waits, so the
+ring cannot deadlock; the champion lands on the next rank's island 0.  At
+the end one `all_gather` per leaf gives every rank the global ``[P, ...]``
+states and ``[n_gens, P, 2]`` history.  The group's backend decides the
+transport and nothing falls back: `nccl` (one card per rank) sends the CUDA
+tensors themselves, device to device; `gloo` sends no CUDA tensor, so each
+payload is copied to the host explicitly and back after the receive.  One
+H100 takes one NCCL rank only, so ranks that share a card run `gloo` with
+that host staging: the reference's "no host round-trip" holds only across
+several cards.  The reference's `mesh=` (a DeviceMesh) waits for sharding:
+passing one raises.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
+from torch.utils import _pytree
 
 from repro_torch import resolve_device
 from repro_torch.core import evolve, hyper, portfolio, warmstart
@@ -42,8 +59,9 @@ from repro_torch.core import genotype as G
 from repro_torch.core import objectives as O
 from repro_torch.fpga.netlist import Problem
 
-MESH_NOT_PORTED = ("islands over several devices (shard_map/ppermute ring) are "
-                   "not ported yet (ROADMAP.md, queue 1 item 8b)")
+MESH_NOT_PORTED = ("islands over a device mesh wait for sharding (DeviceMesh; "
+                   "ROADMAP.md, queue 1 item 11.5); pass group= (a torch.distributed "
+                   "process group) to spread islands over processes")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,30 +142,87 @@ def adopt(state: Dict, champ, champ_objs: torch.Tensor) -> Dict:
     return st
 
 
-def migrate_ring(state: Dict) -> Dict:
-    """Ring migration over island-stacked states ``[P, ...]``: island i
-    adopts the champion of island i - 1 (mod P), one roll of the stacked
-    champions."""
+class Ring:
+    """The island ring over the ranks of a process group (`None`: the
+    default group).  Rank r holds islands [r L, (r + 1) L); its last
+    island's champion goes to rank r + 1.  The backend fixes the wire:
+    `gloo` carries host tensors (each payload is copied to the host and
+    back), `nccl` carries the CUDA tensors themselves; any other backend,
+    or `nccl` with host tensors, raises."""
+
+    def __init__(self, group, device: torch.device):
+        self.group, self.device = group, torch.device(device)
+        self.size, self.rank = dist.get_world_size(group), dist.get_rank(group)
+        backend = dist.get_backend(group)
+        if backend == "gloo":
+            self.wire = torch.device("cpu")
+        elif backend == "nccl" and self.device.type == "cuda":
+            self.wire = self.device
+        else:
+            raise ValueError(f"islands over a {backend!r} group cannot carry "
+                             f"{self.device.type} tensors: use gloo, or nccl on CUDA")
+        group = dist.group.WORLD if group is None else group
+        self.next = dist.get_global_rank(group, (self.rank + 1) % self.size)
+        self.prev = dist.get_global_rank(group, (self.rank - 1) % self.size)
+
+    def exchange(self, tree):
+        """Send `tree` to the next rank and return the previous rank's."""
+        leaves, spec = _pytree.tree_flatten(tree)
+        out = [a.to(self.wire).contiguous() for a in leaves]
+        inc = [torch.empty_like(a) for a in out]
+        reqs = [dist.isend(a, self.next, group=self.group, tag=i) for i, a in enumerate(out)]
+        reqs += [dist.irecv(a, self.prev, group=self.group, tag=i) for i, a in enumerate(inc)]
+        for req in reqs:
+            req.wait()
+        return _pytree.tree_unflatten([a.to(self.device) for a in inc], spec)
+
+    def all_gather(self, tree, dim: int = 0):
+        """Every rank's `tree`, each leaf concatenated along `dim` in rank order."""
+        leaves, spec = _pytree.tree_flatten(tree)
+        out = []
+        for a in leaves:
+            a = a.to(self.wire).contiguous()
+            parts = [torch.empty_like(a) for _ in range(self.size)]
+            dist.all_gather(parts, a, group=self.group)
+            out.append(torch.cat(parts, dim=dim).to(self.device))
+        return _pytree.tree_unflatten(out, spec)
+
+
+def migrate_ring(state: Dict, ring: Optional[Ring] = None) -> Dict:
+    """Ring migration over island-stacked states ``[L, ...]``: island i
+    adopts the champion of island i - 1 (mod P, globally).
+
+    In one process (`ring=None`, L = P) one roll of the stacked champions;
+    across ranks the local roll plus one `Ring.exchange` carrying this
+    rank's last champion to the next rank's island 0."""
     champs, cobjs = torch.func.vmap(champion)(state)
-    inc = G.tree_map(lambda a: torch.roll(a, 1, dims=0), champs)
-    return torch.func.vmap(adopt)(state, inc, torch.roll(cobjs, 1, dims=0))
+    if ring is None:
+        inc = G.tree_map(lambda a: torch.roll(a, 1, dims=0), champs)
+        inc_objs = torch.roll(cobjs, 1, dims=0)
+    else:
+        bound, bound_objs = ring.exchange((G.tree_map(lambda a: a[-1], champs), cobjs[-1]))
+        inc = G.tree_map(lambda b, a: torch.cat([b[None], a[:-1]]), bound, champs)
+        inc_objs = torch.cat([bound_objs[None], cobjs[:-1]])
+    return torch.func.vmap(adopt)(state, inc, inc_objs)
 
 
 # ------------------------------------------------------ generation loop
 
 def round_impl(problem: Problem, algo: str, icfg: IslandConfig, cfg,
                state: Dict, gens: Sequence[torch.Generator], n_gens: int,
-               g0: Union[int, torch.Tensor]) -> Tuple[Dict, torch.Tensor]:
+               g0: Union[int, torch.Tensor], ring: Optional[Ring] = None
+               ) -> Tuple[Dict, torch.Tensor]:
     """Advance island-stacked states by `n_gens` generations.
 
-    `cfg` is the islands' shared config, `gens` the islands' generators
-    and `g0` the global generation count already run.  Ring migration
+    `cfg` is the islands' shared config, `gens` the generators of the L
+    islands held here (all P of them without a `ring`) and `g0` the global
+    generation count already run.  Ring migration
     fires after every generation g with ``g % migrate_every == 0``,
     counted globally, so a pool stepping a few generations at a time
     migrates on the same generations as one long run.  With a Python int `g0` the host decides
     when to migrate; with a tensor (slots of a pool at different counts)
     every generation computes the migration and keeps it where due.
-    Returns (state, per-island best objectives ``[n_gens, P, 2]``).
+    Returns (state, per-island best objectives ``[n_gens, L, 2]``).
     """
     p, dev = len(gens), torch.device(gens[0].device)
     static_key, fields = hyper.split_fields(cfg)
@@ -165,9 +240,9 @@ def round_impl(problem: Problem, algo: str, icfg: IslandConfig, cfg,
             if isinstance(g, torch.Tensor):
                 do = (g % icfg.migrate_every) == 0
                 state = G.tree_map(lambda a, b: torch.where(do, b, a),
-                                   state, migrate_ring(state))
+                                   state, migrate_ring(state, ring))
             elif g % icfg.migrate_every == 0:
-                state = migrate_ring(state)
+                state = migrate_ring(state, ring)
         hist[i] = portfolio.best_objs(state)
     return state, hist
 
@@ -281,13 +356,33 @@ def best_genotype(problem: Problem, algo: str, state: Dict,
 
 # ------------------------------------------------------- full-run entry
 
+def _process_group(n: int, group):
+    """The group the islands spread over, or None for one process.  An
+    explicit `group` must have a size dividing `n`; without one, the
+    default group is used when it is initialised, has W > 1 ranks and W
+    divides `n` (the reference's ``shard="auto"``)."""
+    if group is None:
+        if not (dist.is_available() and dist.is_initialized()):
+            return None
+        w = dist.get_world_size()
+        return dist.group.WORLD if w > 1 and n % w == 0 else None
+    w = dist.get_world_size(group)
+    if n % w:
+        raise ValueError(f"a process group of {w} ranks must divide n_islands={n}")
+    return group if w > 1 else None
+
+
 def run(problem: Problem, algo: str, cfg, gen: torch.Generator, n_gens: int,
-        islands: IslandConfig = IslandConfig(), mesh=None, device="cuda"
-        ) -> Tuple[Dict, torch.Tensor]:
+        islands: IslandConfig = IslandConfig(), mesh=None, device="cuda",
+        group=None) -> Tuple[Dict, torch.Tensor]:
     """P islands of a full optimisation on `device`, drawing from `gen`.
 
     Returns (island-stacked states ``[P, ...]``, per-island history
     ``[n_gens, P, 2]`` on the device).  P = 1 is `evolve.run` bit for bit.
+    Over a process group (`group`, or the default one when it is
+    initialised and its size divides P) every rank passes a `gen` seeded alike,
+    builds the same P island generators, evolves its own P / W islands and
+    returns the whole result, the single-process run's.
     """
     if mesh is not None:
         raise NotImplementedError(MESH_NOT_PORTED)
@@ -297,5 +392,14 @@ def run(problem: Problem, algo: str, cfg, gen: torch.Generator, n_gens: int,
     cfg = hyper.tracify(cfg, dev)
     static_key, traced = hyper.split_fields(cfg)
     gens = island_generators(gen, islands.n_islands)
-    state = member_init(problem, algo, static_key, islands, traced, gens)
-    return round_impl(problem, algo, islands, cfg, state, gens, n_gens, 0)
+    group = _process_group(islands.n_islands, group)
+    if group is None:
+        state = member_init(problem, algo, static_key, islands, traced, gens)
+        return round_impl(problem, algo, islands, cfg, state, gens, n_gens, 0)
+    ring = Ring(group, dev)
+    per = islands.n_islands // ring.size
+    mine = gens[ring.rank * per:(ring.rank + 1) * per]
+    state = member_init(problem, algo, static_key,
+                        dataclasses.replace(islands, n_islands=per), traced, mine)
+    state, hist = round_impl(problem, algo, islands, cfg, state, mine, n_gens, 0, ring)
+    return ring.all_gather(state), ring.all_gather(hist, dim=1)

@@ -1,4 +1,5 @@
-"""Parameter specs and apply-side helpers: rmsnorm, dense, rope, swiglu.
+"""Parameter specs and apply-side helpers: rmsnorm, dense, rope, swiglu,
+and the training loss `softmax_xent`.
 
 Port of `repro/models/modules.py`.  A `ParamSpec` gives a parameter's
 shape and initializer; `param` realises it from an explicit
@@ -94,3 +95,16 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
            wd: torch.Tensor) -> torch.Tensor:
     h = F.silu(dense(x, wg)) * dense(x, wu)
     return dense(h, wd)
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean masked token cross-entropy with an fp32 logsumexp."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets[..., None].long(), dim=-1)[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -7,8 +7,9 @@ Covers deepseek-moe (2 shared + 64 routed top-6), qwen2-moe (4 shared +
 jamba's 16-expert top-2 layers.
 
 The layer is split the way the port splits a stochastic operator: `route`
-computes the routes (top-k indices, renormalised gates, the Switch aux
-term), and two bodies take the routes as tensors and compute the same
+computes the routes (top-k indices, renormalised gates, and the Switch aux
+term where training asks for it: serving skips its ~8 ops a layer), and two
+bodies take the routes as tensors and compute the same
 function as `_apply_reference`:
 
   * `dispatch` (the model's path) groups the (token, k) pairs by expert
@@ -75,9 +76,11 @@ class MoE(nn.Module):
         self.args = args
         M.build(self, specs(args), generator, device, dtype)
 
-    def route(self, xf: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """xf [T, d] -> (top-k indices [T, k], gates [T, k], aux loss)."""
+    def route(self, xf: torch.Tensor, aux: bool = True
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """xf [T, d] -> (top-k indices [T, k], gates [T, k], aux loss); the
+        aux term is None unless `aux` (training's loss uses it, serving
+        does not)."""
         a = self.args
         logits = M.dense(xf.float(), self.router)
         if a.e_phys > a.n_routed:                       # mask padded experts
@@ -86,13 +89,15 @@ class MoE(nn.Module):
         gates_full = torch.softmax(logits, dim=-1)
         gates, inds = torch.topk(gates_full, a.top_k, dim=-1)
         gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        if not aux:
+            return inds, gates.to(xf.dtype), None
         # Switch-style load balance aux: E * sum_e f_e * p_e (counted with
         # index_add_: bincount reads its input's range back to the host)
         flat = inds.reshape(-1)
         f = torch.zeros(a.e_phys, device=xf.device).index_add_(
             0, flat, torch.ones(flat.shape, device=xf.device)) / flat.numel()
-        aux = a.aux_weight * a.n_routed * torch.sum(f * gates_full.mean(0))
-        return inds, gates.to(xf.dtype), aux
+        loss = a.aux_weight * a.n_routed * torch.sum(f * gates_full.mean(0))
+        return inds, gates.to(xf.dtype), loss
 
     def dispatch(self, xf: torch.Tensor, inds: torch.Tensor, gates: torch.Tensor
                  ) -> torch.Tensor:
@@ -120,13 +125,14 @@ class MoE(nn.Module):
         sel = torch.take_along_dim(y_all, inds[:, :, None], dim=1)      # [T, k, d]
         return torch.sum(sel * gates[:, :, None], dim=1)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x [B, S, d] -> (y [B, S, d], aux scalar).  Under torch.profiler
-        the layer is the span "moe"."""
+    def forward(self, x: torch.Tensor, aux: bool = True
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x [B, S, d] -> (y [B, S, d], aux scalar, None unless `aux`).
+        Under torch.profiler the layer is the span "moe"."""
         with torch.profiler.record_function("moe"):
             b, s, d = x.shape
             xf = x.reshape(b * s, d)
-            inds, gates, aux = self.route(xf)
+            inds, gates, aux = self.route(xf, aux)
             y = self.dispatch(xf, inds, gates).reshape(b, s, d)
             if self.args.n_shared:
                 sh = self.shared

@@ -13,8 +13,17 @@ llava / musicgen stubs, `models/stubs.py`), prepended to the token
 embeddings as the reference's `_embed_inputs` does.  The per-layer
 serving state is the KV cache of an attention layer, the conv window and
 SSM state of a mamba layer, or the WKV state of an RWKV block.
-`forward` has no rematerialisation and returns logits only; the MoE
-layers' aux loss is returned by `moe.MoE` for training to use.
+
+`forward` is the training pass: it returns (logits, the MoE layers'
+summed aux loss) and, with `remat` (the default) and autograd on,
+rematerialises each period of `period` layers
+(`torch.utils.checkpoint`, non-reentrant), as the reference's
+`jax.checkpoint(period_fn)` does: a period keeps only its input for the
+backward pass and runs again inside it, so every attention layer launches
+its forward kernel twice a training step.  The reference's
+`REPRO_REMAT_POLICY=dots` lever (keep the matmuls' outputs) is left out.
+`loss_fn` is the training loss.  Serving (`prefill`, `decode_step`) skips
+the aux term.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, mamba, mlp, moe, rwkv
@@ -163,18 +173,27 @@ class Block(nn.Module):
         elif self.ffn == "mlp":
             self.mlp = mlp.MLP(cfg.d_model, cfg.d_ff, **kw)
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor, aux: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x + the FFN of norm2(x), and the MoE aux term if `aux` (0 without
+        MoE; None unless `aux`)."""
         h = M.rmsnorm(x, self.ln2, self.cfg.norm_eps)
-        return x + (self.moe(h)[0] if self.ffn == "moe" else self.mlp(h))
+        if self.ffn == "moe":
+            y, a = self.moe(h, aux=aux)
+            return x + y, a
+        return x + self.mlp(h), torch.zeros((), device=x.device) if aux else None
 
     def _norm1(self, x: torch.Tensor) -> torch.Tensor:
         return M.rmsnorm(x, self.ln1, self.cfg.norm_eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The full-sequence block (training): (x, its MoE aux loss, 0 for
+        a block without MoE)."""
         if self.mixer == "rwkv":
-            return self.rwkv(x, rwkv.init_state(self.cfg.rwkv_args(), x.shape[0], x.device))[0]
+            state = rwkv.init_state(self.cfg.rwkv_args(), x.shape[0], x.device)
+            return self.rwkv(x, state)[0], torch.zeros((), device=x.device)
         mixer = self.mamba if self.mixer == "mamba" else self.attn
-        return self._ffn(x + mixer(self._norm1(x)))
+        return self._ffn(x + mixer(self._norm1(x)), aux=True)
 
     def prefill(self, x: torch.Tensor, max_len: int
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -185,7 +204,7 @@ class Block(nn.Module):
         else:
             y, kv = self.attn.apply_and_cache(self._norm1(x))
             cache = {k: _pad_cache(v, max_len) for k, v in kv.items()}
-        return self._ffn(x + y), cache
+        return self._ffn(x + y)[0], cache
 
     def decode_step(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                     cache_len: torch.Tensor
@@ -196,7 +215,7 @@ class Block(nn.Module):
             y, cache = self.mamba.decode_step(self._norm1(x), cache)
         else:
             y, cache = self.attn.decode_step(self._norm1(x), cache, cache_len)
-        return self._ffn(x + y), cache
+        return self._ffn(x + y)[0], cache
 
 
 class Transformer(nn.Module):
@@ -220,7 +239,9 @@ class Transformer(nn.Module):
 
     def _embed(self, tokens: torch.Tensor,
                frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.embed[tokens]
+        # F.embedding, not indexing: its backward sums each row's gradients
+        # in a fixed order, where index_put's accumulation adds with atomics
+        x = F.embedding(tokens, self.embed)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
         return x
@@ -229,14 +250,29 @@ class Transformer(nn.Module):
         x = M.rmsnorm(x, self.ln_f, self.cfg.norm_eps)
         return M.dense(x, self.head).float()
 
+    def _period(self, x: torch.Tensor, first: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The `period` layers from layer `first` on: (x, their summed aux)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for block in self.blocks[first:first + self.cfg.period]:
+            x, a = block(x)
+            aux = aux + a
+        return x, aux
+
     def forward(self, tokens: torch.Tensor,
-                frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                frontend_embeds: Optional[torch.Tensor] = None, remat: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens [B, S] (after frontend_embeds [B, F, d], if given) ->
-        logits [B, F + S, V] fp32."""
+        (logits [B, F + S, V] fp32, the MoE aux loss summed over layers).
+        With `remat` and autograd on, each period is rematerialised."""
         x = self._embed(tokens, frontend_embeds)
-        for block in self.blocks:
-            x = block(x)
-        return self._logits(x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for first in range(0, self.cfg.n_layers, self.cfg.period):
+            if remat and torch.is_grad_enabled():
+                x, a = checkpoint(self._period, x, first, use_reentrant=False)
+            else:
+                x, a = self._period(x, first)
+            aux = aux + a
+        return self._logits(x), aux
 
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16
                     ) -> List[Dict[str, torch.Tensor]]:
@@ -285,3 +321,15 @@ class Transformer(nn.Module):
             x, c = block.decode_step(x, c, cache_len)
             new.append(c)
         return self._logits(x[:, 0]), new
+
+
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens [B, S], targets [B, S] (+ frontend_embeds [B, F, d],
+    an optional mask [B, S]) -> (xent + aux, {"xent", "aux"}).  The
+    frontend positions' logits are sliced off before the loss."""
+    fe = batch.get("frontend_embeds")
+    logits, aux = model(batch["tokens"], fe)
+    f = 0 if fe is None else fe.shape[1]
+    xent = M.softmax_xent(logits[:, f:, :], batch["targets"], batch.get("mask"))
+    return xent + aux, {"xent": xent, "aux": aux}

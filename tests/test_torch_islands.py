@@ -205,7 +205,7 @@ def test_warm_seed_lands_on_island_0(case):
 
 
 def test_a_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 11.5"):
         TI.run(PORT, "nsga2", TN.NSGA2Config(pop_size=4), torch.Generator(), 1,
                TI.IslandConfig(2, 1), mesh=object(), device="cpu")
     sk, traced = TH.split_fields(TH.tracify(TN.NSGA2Config(pop_size=4), "cpu"))

@@ -86,7 +86,7 @@ def test_forward_matches_reference(pair):
     toks = _tokens(rcfg, 2, CASES[name][1])
     want, _ = RT.forward(params, rcfg, jnp.asarray(toks), remat=False)
     with torch.no_grad():
-        got = model(torch.tensor(toks, dtype=torch.long))
+        got = model(torch.tensor(toks, dtype=torch.long))[0]
     _close(got, want)
 
 
@@ -122,7 +122,7 @@ def test_decode_matches_forward(name):
     tok1 = torch.argmax(logits, -1)
     logits2, _ = model.decode_step(tok1, caches, clen)
     with torch.no_grad():
-        full = model(torch.cat([toks, tok1[:, None]], 1))
+        full = model(torch.cat([toks, tok1[:, None]], 1))[0]
     torch.testing.assert_close(logits2, full[:, -1], rtol=1e-3, atol=2e-4)
 
 

@@ -200,7 +200,7 @@ def test_forward_matches_reference(pair):
     toks, fe = _tokens(rcfg, 2, 12), _frontend(rcfg, 2)
     want = progs["forward"](params, toks, fe)
     with torch.no_grad():
-        got = model(_t(toks, torch.long), None if fe is None else _t(fe))
+        got = model(_t(toks, torch.long), None if fe is None else _t(fe))[0]
     assert got.shape == (2, 12 + rcfg.n_frontend_tokens, rcfg.vocab)
     _close(got, want)
 

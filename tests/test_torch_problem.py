@@ -2,8 +2,9 @@
 
 The port keeps its own copies of `fpga/device.py` and `fpga/netlist.py`;
 every array, scalar and content hash must agree with the reference byte
-for byte.  Its copies of the reference's serving modules that need no JAX
-equal the reference's files, but for the lines that import the reference
+for byte.  Its copies of the reference's serving modules that need no JAX,
+of the data pipeline and of the elastic runtime equal the reference's
+files, but for the lines that import the reference
 package, which import the port's module of the same name (and, in the
 scheduler, the lines that add its `device` argument; in prewarm, the
 module docstring).  Nothing in `src/repro_torch/` or `chip_smoke.py` may import JAX
@@ -79,7 +80,8 @@ def test_port_imports_neither_jax_nor_reference(rel):
 
 # port copy -> the number of its lines that import the reference package
 COPIES = {"runtime/telemetry.py": 1, "serve/tracing.py": 0, "serve/api.py": 3,
-          "serve/policy.py": 0, "serve/frontend.py": 4}
+          "serve/policy.py": 0, "serve/frontend.py": 4, "data/pipeline.py": 0,
+          "runtime/elastic.py": 0}
 
 
 def _lines(package, rel, below_docstring=False):
