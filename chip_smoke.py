@@ -130,6 +130,9 @@
    `examples/train_lm` at its defaults (the loss falls), then with
    --inject 150 (the recovered losses against the uninterrupted run's);
    and the training launcher for 20 steps of reduced yi-6b.
+   (The dry-run cells of phase 5 (c) start here, in a process of their
+   own with a fake process group, tracing on the host's CPU while the card
+   serves and trains.)
 4. Times each kernel and its plain version with CUDA events at the path's
    shapes, at the baselines' and the transfer's shapes, and at 2048 rows
    (and each call's device time from a
@@ -143,6 +146,27 @@
    B) = (7, 7, 1, 1)) over FIGURE_ROWS rows, and must issue one device op
    per call at every shape reported; each placement wrapper's host µs per
    call is split by stage (`host_split`).
+5. Sharding and the dry-run (`run_sharding_phase`; its launches join the
+   kernel rows): (a) on a world-1 NCCL mesh (1, 1) in a spawned process,
+   yi-6b at full width over SHARD_LAYERS = 8 layers (fp32) with DTensor
+   parameters laid out by `spec_for(param_axes)`: a 2048-token prefill
+   and 16 decode steps under `activate`, the logits against the
+   unsharded model's on the same weights and the flash launches through
+   the custom op and its sharding rule; (b) two gloo ranks spawned on the
+   card, computing on CUDA with their collectives staged through the
+   host: yi-6b's split-KV decode attention over a 4096-token cache split
+   2 ways, heads-sharded flash prefill (16 / 2 heads a rank), `_apply_ep`
+   on one deepseek-moe-16b MoE layer at full width (32 of 64 experts a
+   rank) with capacity not binding (against `dense`) and at
+   capacity_factor 1.0 (against the same two shards in one process), and
+   `islands.run(mesh=)` over a 2-rank "islands" mesh bit for bit against
+   `group=`; (c) `launch.dryrun` on (16, 16) for yi-6b at train_4k,
+   prefill_32k and decode_32k, musicgen-large at decode_32k, rwkv6-1.6b
+   at long_500k, deepseek-moe-16b at train_4k on (2, 16, 16), and
+   vu_systolic's ea_round executed on the card, each cell's JSON under
+   experiments/dryrun.  (c) starts with the phase, after every timed
+   phase before it, and traces in its own process while (a) and (b) run:
+   their times share the host with it.
 
 Prints the card's name and power limit, one JSON line of kernel figures,
 and as its last line `{"ok": true, "device": {...}}`.  Exits non-zero,
@@ -164,6 +188,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -328,6 +353,25 @@ TRAIN_BF16_LAYERS, TRAIN_BF16_RTOL = 2, 1e-2
 TRAIN_FAMILIES = ("deepseek-moe-16b", "jamba-v0.1-52b", "rwkv6-1.6b")
 TRAIN_FAMILY_STEPS, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 3, 4, 64
 TRAIN_LM_INJECT, TRAIN_LM_RTOL, TRAIN_LAUNCH_STEPS = 150, 1e-2, 20
+# sharding: (a) yi-6b at full width over SHARD_LAYERS layers on a world-1
+# NCCL mesh, a SHARD_PROMPT-token prefill and SHARD_DECODE decode steps,
+# against the unsharded model (the same local ops: SHARD_TOL allows the
+# DTensor path's other op order); (b) over 2 gloo ranks on the card:
+# split-KV decode at SPLIT_KV_B rows of SPLIT_KV_LENS filled lengths over a
+# SPLIT_KV_T cache (the merge adds two partials in another order than one
+# pass: SHARD_TOL), heads-sharded flash at SHARD_PROMPT tokens, `_apply_ep`
+# on deepseek-moe-16b's layer at EP_TOKENS tokens (capacity not binding at
+# EP_FREE_CF, binding at 1.0), islands P = ISL_P over ISL_WORLD ranks for
+# SHARD_ISL_GENS generations; (c) DRYRUN_CELLS (arch, shape, multi-pod)
+SHARD_LAYERS, SHARD_PROMPT, SHARD_DECODE = 8, 2048, 16
+SHARD_TOL = dict(rtol=1e-5, atol=1e-5)
+SPLIT_KV_B, SPLIT_KV_T, SPLIT_KV_LENS = 4, 4096, (100, 2047, 2048, 4000)
+EP_TOKENS, EP_FREE_CF, SHARD_ISL_GENS, SHARD_TIMEOUT_S = 1024, 11.0, 10, 300
+DRYRUN_CELLS = (("yi-6b", "train_4k", False), ("yi-6b", "prefill_32k", False),
+                ("yi-6b", "decode_32k", False), ("musicgen-large", "decode_32k", False),
+                ("rwkv6-1.6b", "long_500k", False), ("deepseek-moe-16b", "train_4k", True),
+                ("vu_systolic", "ea_round", False))
+DRYRUN_TIMEOUT_S = 700
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense
@@ -1156,6 +1200,35 @@ def islands_rank(rank, store_path, out_path):
         dist.destroy_process_group()
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(target, args_of, world: int, timeout_s: float):
+    """Start `world` spawned processes target(*args_of(r)), join them
+    within `timeout_s` in all; a rank that hangs or fails raises."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of(r)) for r in range(world)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(max(t0 + timeout_s - time.perf_counter(), 0))
+    hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+    if hung or any(proc.exitcode != 0 for proc in procs):
+        raise AssertionError(f"{target.__name__}: ranks {hung} hung, exit codes "
+                             f"{[proc.exitcode for proc in procs]}")
+    return time.perf_counter() - t0
+
+
 def run_islands_dist_phase(problem, kernels):
     """Islands across ISL_WORLD processes on the one card: their gathered
     states and history against the single-process `evolve.run(islands=...)`
@@ -1165,7 +1238,6 @@ def run_islands_dist_phase(problem, kernels):
     generation per rank and host ms per ring exchange; then
     `evolve.run_islands` over the ranks (finite history, a legal
     champion).  A rank that fails or hangs fails the phase."""
-    import multiprocessing
     import tempfile
 
     import torch
@@ -1180,24 +1252,8 @@ def run_islands_dist_phase(problem, kernels):
     want = torch.utils._pytree.tree_map(lambda a: a.cpu(), want)
     with tempfile.TemporaryDirectory() as tmp:
         outs = [Path(tmp) / f"rank{r}.pt" for r in range(ISL_WORLD)]
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=islands_rank, args=(r, str(Path(tmp) / "store"), str(outs[r])))
-                 for r in range(ISL_WORLD)]
-        t0 = time.perf_counter()
-        for proc in procs:
-            proc.start()
-        deadline = t0 + ISL_DIST_TIMEOUT_S
-        for proc in procs:
-            proc.join(max(deadline - time.perf_counter(), 0))
-        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
-        for proc in procs:
-            if proc.is_alive():
-                proc.kill()
-                proc.join(10)
-        if hung or any(proc.exitcode != 0 for proc in procs):
-            raise AssertionError(f"islands across processes: ranks {hung} hung, exit codes "
-                                 f"{[proc.exitcode for proc in procs]}")
-        wall = time.perf_counter() - t0
+        wall = spawn_ranks(islands_rank, lambda r: (r, str(Path(tmp) / "store"), str(outs[r])),
+                           ISL_WORLD, ISL_DIST_TIMEOUT_S)
         ranks = [torch.load(o, weights_only=False) for o in outs]
     per = ISL_P // ISL_WORLD
     out, paths = dict(wall_s=wall, single_ms_per_gen=single_s / ISL_GENS * 1e3, ranks=[]), {}
@@ -3260,6 +3316,338 @@ def print_training(out, by_path):
           f"{v['seconds']:.3f} s; {v['last_line']}; launches {by_path['train_launcher']}")
 
 
+# ------------------------------------------------------------ phase 3h, sharding
+
+DRYRUN_CHILD = r"""
+import json, sys, time
+from repro_torch.launch import dryrun
+out = {}
+for arch, shape, multi_pod in json.loads(sys.argv[2]):
+    t0 = time.perf_counter()
+    r = dryrun.run_cell(arch, shape, multi_pod, save_dir=sys.argv[1], verbose=False,
+                        device="cuda")
+    r["wall_s"] = time.perf_counter() - t0
+    out[f"{arch} {shape} {r['mesh']}"] = r
+json.dump(out, open(sys.argv[3], "w"))
+"""
+
+
+def sharded_lm_rank(port, out_path):
+    """Part (a), one process on a world-1 NCCL mesh (1, 1): yi-6b at full
+    width over SHARD_LAYERS layers, prefill and decode unsharded, then the
+    same weights as DTensors laid out by `spec_for(param_axes)` under
+    `activate`; saves both runs' logits, times and flash launches."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import logical
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        rules = logical.default_rules()
+        cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=SHARD_LAYERS)
+        model = T.Transformer(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
+        gen = torch.Generator("cuda").manual_seed(SEED + 1)
+        prompt = torch.randint(0, cfg.vocab, (1, SHARD_PROMPT), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        steps = torch.randint(0, cfg.vocab, (SHARD_DECODE, 1), generator=gen, device="cuda",
+                              dtype=torch.int32)
+
+        def serve():
+            logits, caches, clen = model.prefill(prompt, SHARD_PROMPT + SHARD_DECODE)
+            out = [logits.full_tensor() if hasattr(logits, "full_tensor") else logits]
+            for tok in steps:
+                logits, caches = model.decode_step(tok, caches, clen)
+                clen = clen + 1
+                out.append(logits.full_tensor() if hasattr(logits, "full_tensor") else logits)
+            return torch.stack(out)
+
+        res = {}
+        for name in ("plain", "sharded"):
+            if name == "sharded":
+                axes = T.param_axes(model)
+                for pname, p in list(model.named_parameters()):
+                    owner, _, leaf = pname.rpartition(".")
+                    mod = model.get_submodule(owner) if owner else model
+                    pl = logical.placements(logical.spec_for(axes[pname], p.shape, mesh, rules), mesh)
+                    setattr(mod, leaf, torch.nn.Parameter(
+                        distribute_tensor(p.detach(), mesh, pl, src_data_rank=None),
+                        requires_grad=False))
+            ctx = logical.activate(mesh, rules) if name == "sharded" else contextlib.nullcontext()
+            with ctx:
+                serve()                                  # warm-up
+                flash_attention.KERNEL.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = serve()
+                torch.cuda.synchronize()
+                res[name] = dict(logits=logits.cpu(), seconds=time.perf_counter() - t0,
+                                 flash=flash_attention.KERNEL.launches)
+        res["param_type"] = type(model.head).__name__
+        res["placements"] = str(model.head.placements)
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharding_inputs():
+    """Part (b)'s inputs, drawn alike in every process from SEED on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    g = torch.Generator("cuda").manual_seed(SEED + 2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    yi, ds = get_arch(SERVE_ARCH), get_arch("deepseek-moe-16b")
+    h, hkv, d = yi.n_heads, yi.n_kv_heads, yi.d_head
+    a = ds.moe_args()
+    e, dm, de = a.e_phys, a.d_model, a.d_expert
+    return dict(
+        q1=randn(SPLIT_KV_B, h, d), k1=randn(SPLIT_KV_B, hkv, d), v1=randn(SPLIT_KV_B, hkv, d),
+        kc=randn(SPLIT_KV_B, hkv, SPLIT_KV_T, d), vc=randn(SPLIT_KV_B, hkv, SPLIT_KV_T, d),
+        clen=torch.tensor(SPLIT_KV_LENS, dtype=torch.int32, device="cuda"),
+        q=randn(1, h, SHARD_PROMPT, d), k=randn(1, hkv, SHARD_PROMPT, d),
+        v=randn(1, hkv, SHARD_PROMPT, d),
+        x=randn(EP_TOKENS, dm), router=randn(dm, e, scale=0.02),
+        wg=randn(e, dm, de, scale=dm ** -0.5), wu=randn(e, dm, de, scale=dm ** -0.5),
+        wd=randn(e, de, dm, scale=de ** -0.5),
+        moe_args={cf: dataclasses.replace(a, capacity_factor=cf) for cf in (EP_FREE_CF, 1.0)})
+
+
+def ep_cap(a) -> int:
+    return int(a.capacity_factor * a.top_k * EP_TOKENS / a.e_phys) + 1
+
+
+def sharding_rank(rank, store_path, out_path):
+    """Part (b), one of ISL_WORLD gloo ranks on the card: its shard of
+    split-KV decode, heads-sharded flash prefill, `_apply_ep` and islands
+    over a mesh, with launches counted and host ms per call; saves to
+    `out_path`."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import islands as TI
+    from repro_torch.core import nsga2
+    from repro_torch.fpga import device, netlist
+    from repro_torch.kernels import bbox, domination, flash_attention, ops, wirelength
+    from repro_torch.models import attention, moe
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, ISL_WORLD), rank=rank,
+                            world_size=ISL_WORLD,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = init_device_mesh("cpu", (1, ISL_WORLD), mesh_dim_names=("data", "model"))
+        inp, out = sharding_inputs(), {}
+        tl = SPLIT_KV_T // ISL_WORLD
+        kc = inp["kc"][:, :, rank * tl:(rank + 1) * tl].clone()
+        vc = inp["vc"][:, :, rank * tl:(rank + 1) * tl].clone()
+        for rep in range(2):                          # the first call warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, kc2, vc2 = attention.split_kv_decode_local(
+                inp["q1"], inp["k1"], inp["v1"], kc.clone(), vc.clone(), inp["clen"], None,
+                mesh, ("model",))
+            torch.cuda.synchronize()
+            out["split_kv_ms"] = (time.perf_counter() - t0) * 1e3
+        out["split_kv"] = (o.cpu(), kc2.cpu(), vc2.cpu())
+        hq, hk = inp["q"].shape[1] // ISL_WORLD, inp["k"].shape[1] // ISL_WORLD
+        parts = [t[:, r * n:(r + 1) * n].contiguous()
+                 for t, n, r in ((inp["q"], hq, rank), (inp["k"], hk, rank), (inp["v"], hk, rank))]
+        flash_attention.KERNEL.launches = 0
+        out["flash"] = ops.flash_attention(*parts, True, None, None).cpu()
+        out["flash_launches"] = flash_attention.KERNEL.launches
+        e_loc = inp["wg"].shape[0] // ISL_WORLD
+        w = [inp[k][rank * e_loc:(rank + 1) * e_loc] for k in ("wg", "wu", "wd")]
+        for cf, a in inp["moe_args"].items():
+            y, aux = moe.apply_ep_local(a, inp["x"], inp["router"], *w, ep_cap(a), mesh,
+                                        ("model",), ("data",))
+            out[f"ep_{cf}"] = (y.cpu(), aux.cpu())
+        problem = netlist.make_problem(device.get_device(FPGA_DEVICE))
+        isl = init_device_mesh("cpu", (ISL_WORLD,), mesh_dim_names=("islands",))
+        cfg, icfg = nsga2.NSGA2Config(pop_size=POP), TI.IslandConfig(ISL_P, ISL_MIGRATE)
+        kernels = {"wirelength2": wirelength.KERNEL, "maxbbox": bbox.KERNEL,
+                   "domination": domination.KERNEL}
+        (got, _, launches) = counted(kernels, lambda: TI.run(
+            problem, "nsga2", cfg, torch.Generator("cuda").manual_seed(SEED + 40),
+            SHARD_ISL_GENS, islands=icfg, mesh=isl, device="cuda"))
+        want = TI.run(problem, "nsga2", cfg, torch.Generator("cuda").manual_seed(SEED + 40),
+                      SHARD_ISL_GENS, islands=icfg, device="cuda", group=dist.group.WORLD)
+        out["islands_equal"] = all(torch.equal(x, y) for x, y in zip(
+            torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(want)))
+        out["islands_launches"] = launches
+        torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+DRYRUN_DIR = Path(__file__).resolve().parent / "experiments" / "dryrun"
+
+
+def run_sharding_phase(kernels, tmp):
+    """Sharding and the dry-run, the script's last phase: (c) the dry-run
+    cells start in a process of their own (a fake process group; the
+    host's CPU, but for ea_round's islands on the card) and trace while
+    (a) the global DTensor program runs on a world-1 NCCL mesh and (b) the
+    shard-local functions over two gloo ranks on the card; (c) is read
+    last.  Every sharded result is held within SHARD_TOL of the same
+    computation in one process; returns the figures and the launches by
+    path."""
+    import os
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, moe
+
+    out_dir = DRYRUN_DIR
+    out, paths = {}, {}
+    zero = {n: 0 for n in kernels}
+    env = {**os.environ, "PYTHONPATH": str(DRYRUN_DIR.parents[1] / "src")}
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, str(DRYRUN_DIR),
+                            json.dumps(DRYRUN_CELLS), str(Path(tmp) / "dryrun.json")], env=env)
+    try:
+        # (a) the global program on a world-1 NCCL mesh
+        lm_path = Path(tmp) / "lm.pt"
+        out["lm_wall_s"] = spawn_ranks(sharded_lm_rank, lambda r: (free_port(), str(lm_path)),
+                                       1, SHARD_TIMEOUT_S)
+        lm = torch.load(lm_path, weights_only=False)
+        torch.testing.assert_close(lm["sharded"]["logits"], lm["plain"]["logits"], **SHARD_TOL)
+        if lm["param_type"] != "DTensor":
+            raise AssertionError(f"sharded run's parameters are {lm['param_type']}")
+        diff = (lm["sharded"]["logits"] - lm["plain"]["logits"]).abs().max().item()
+        out["lm"] = dict(max_abs_diff=diff, exact=diff == 0.0,
+                         plain_s=lm["plain"]["seconds"], sharded_s=lm["sharded"]["seconds"],
+                         placements=lm["placements"])
+        for name in ("plain", "sharded"):
+            paths[f"sharding_lm_{name}"] = expect_launches(
+                f"sharding (a) {name}", dict(zero, flash_attention=lm[name]["flash"]),
+                {"flash_attention": SHARD_LAYERS})
+
+        # (b) the shard-local functions over two gloo ranks on the card
+        outs = [Path(tmp) / f"shard{r}.pt" for r in range(ISL_WORLD)]
+        out["ranks_wall_s"] = spawn_ranks(
+            sharding_rank, lambda r: (r, str(Path(tmp) / "store"), str(outs[r])),
+            ISL_WORLD, SHARD_TIMEOUT_S)
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+        inp = sharding_inputs()
+        o, kc, vc = attention.split_kv_decode_local(
+            inp["q1"], inp["k1"], inp["v1"], inp["kc"].clone(), inp["vc"].clone(),
+            inp["clen"], None)
+        heads = ops.flash_attention(inp["q"], inp["k"], inp["v"], True, None, None).cpu()
+        free = inp["moe_args"][EP_FREE_CF]
+        inds, gates, loss = moe.route(free, inp["router"], inp["x"])
+        want_free = (moe.dense(inp["x"], inds, gates, inp["wg"], inp["wu"], inp["wd"]).cpu(),
+                     loss.cpu())
+        a1, e_loc = inp["moe_args"][1.0], inp["wg"].shape[0] // ISL_WORLD
+        inds, gates, loss = moe.route(a1, inp["router"], inp["x"])
+        want_cap = (sum(moe.ep_experts(a1, inp["x"], inds, gates, *(
+            inp[k][r * e_loc:(r + 1) * e_loc] for k in ("wg", "wu", "wd")), ep_cap(a1), r * e_loc)
+            for r in range(ISL_WORLD)).cpu(), loss.cpu())
+        dropped = (want_cap[0] - want_free[0]).abs().max().item()
+        if dropped < 1e-3:
+            raise AssertionError("capacity_factor 1.0 dropped no routed pair")
+        tl, hq = SPLIT_KV_T // ISL_WORLD, inp["q"].shape[1] // ISL_WORLD
+        diffs = {"split_kv": 0.0, "flash_heads": 0.0, "ep_free": 0.0, "ep_cap1": 0.0}
+        for r, res in enumerate(ranks):
+            got_o, got_k, got_v = res["split_kv"]
+            torch.testing.assert_close(got_o, o.cpu(), **SHARD_TOL)
+            if not (torch.equal(got_k, kc[:, :, r * tl:(r + 1) * tl].cpu())
+                    and torch.equal(got_v, vc[:, :, r * tl:(r + 1) * tl].cpu())):
+                raise AssertionError(f"split-KV rank {r}: its cache slice differs")
+            want_h = heads[:, r * hq:(r + 1) * hq]
+            torch.testing.assert_close(res["flash"], want_h, **SHARD_TOL)
+            for key, want in (("ep_free", want_free), (f"ep_cap1", want_cap)):
+                got = res[f"ep_{EP_FREE_CF if key == 'ep_free' else 1.0}"]
+                torch.testing.assert_close(got[0], want[0], **SHARD_TOL)
+                torch.testing.assert_close(got[1], want[1], **SHARD_TOL)
+                diffs[key] = max(diffs[key], (got[0] - want[0]).abs().max().item())
+            diffs["split_kv"] = max(diffs["split_kv"], (got_o - o.cpu()).abs().max().item())
+            diffs["flash_heads"] = max(diffs["flash_heads"],
+                                       (res["flash"] - want_h).abs().max().item())
+            if not res["islands_equal"]:
+                raise AssertionError(f"islands over a mesh, rank {r}: not the group= run")
+            paths[f"sharding_flash_heads_rank{r}"] = expect_launches(
+                f"sharding (b) flash rank {r}", dict(zero, flash_attention=res["flash_launches"]),
+                {"flash_attention": 1})
+            per = ISL_P // ISL_WORLD
+            paths[f"sharding_islands_mesh_rank{r}"] = expect_launches(
+                f"sharding (b) islands rank {r}", dict(zero, **res["islands_launches"]),
+                {"wirelength2": per + SHARD_ISL_GENS, "maxbbox": per + SHARD_ISL_GENS,
+                 "domination": 2 * SHARD_ISL_GENS})
+        out["ranks"] = dict(max_abs_diff=diffs, dropped_max=dropped,
+                            split_kv_ms=[res["split_kv_ms"] for res in ranks])
+    finally:
+        t_wait = time.perf_counter()
+        try:
+            dry.wait(max(t_dry + DRYRUN_TIMEOUT_S - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            dry.kill()
+            dry.wait()
+            raise AssertionError(f"the dry-run took over {DRYRUN_TIMEOUT_S} s")
+    if dry.returncode != 0:
+        raise AssertionError(f"the dry-run process exited {dry.returncode}")
+    cells = json.loads((Path(tmp) / "dryrun.json").read_text())
+    out["dryrun_s"] = sum(v["wall_s"] for v in cells.values())
+    out["dryrun_waited_s"] = time.perf_counter() - t_wait
+    bad = [k for k, v in cells.items() if v["status"] != "ok"]
+    if bad:
+        raise AssertionError(f"dry-run cells failed: {[(k, cells[k].get('error')) for k in bad]}")
+    if any(not (out_dir / f"{v['arch']}__{v['shape']}__{v['mesh']}.json").is_file()
+           for v in cells.values()):
+        raise AssertionError("a dry-run cell wrote no JSON")
+    out["dryrun"] = cells
+    return out, paths
+
+
+def print_sharding(out, card):
+    lm, rk = out["lm"], out["ranks"]
+    print(f"  (a) and (b) run while the dry-run cells (c) trace in a process of their own: "
+          f"their seconds and ms share the host with it")
+    print(f"  ({card}) (a) yi-6b full width over {SHARD_LAYERS} layers on a world-1 NCCL mesh "
+          f"(1, 1), {SHARD_PROMPT}-token prefill + {SHARD_DECODE} decode steps: DTensor params "
+          f"(head {lm['placements']}) vs unsharded: logits max abs diff {lm['max_abs_diff']} "
+          f"(bit for bit: {lm['exact']}; tol {SHARD_TOL}); plain {lm['plain_s']:.3f} s, "
+          f"sharded {lm['sharded_s']:.3f} s; flash launches {SHARD_LAYERS} each; "
+          f"process {out['lm_wall_s']:.1f} s")
+    print(f"  ({card}) (b) {ISL_WORLD} gloo ranks on the card (host-staged collectives), max abs "
+          f"diff vs one process: split-KV decode (B {SPLIT_KV_B}, T {SPLIT_KV_T}) "
+          f"{rk['max_abs_diff']['split_kv']}, {rk['split_kv_ms']} ms a call; heads-sharded "
+          f"flash {rk['max_abs_diff']['flash_heads']}; _apply_ep capacity not binding vs dense "
+          f"{rk['max_abs_diff']['ep_free']}, capacity_factor 1.0 {rk['max_abs_diff']['ep_cap1']} "
+          f"(dropped pairs move y by {rk['dropped_max']:.4f}); islands(mesh=) == group=: True; "
+          f"processes {out['ranks_wall_s']:.1f} s")
+    print(f"  ({card}) (c) dry-run cells {out['dryrun_s']:.1f} s in their process (started with "
+          f"this phase; waited for after (a) and (b): {out['dryrun_waited_s']:.1f} s):")
+    for key, v in out["dryrun"].items():
+        if v["arch"] == "vu_systolic":
+            print(f"    {key}: {v['status']}, {v['trace_s']} s, best_objs {v['best_objs']}")
+            continue
+        coll = {k: c for k, c in v["collectives"].items() if c}
+        print(f"    {key}: {v['status']}, trace {v['trace_s']} s, peak "
+              f"{v['memory']['peak_estimate_bytes'] / 2 ** 30:.3f} GiB/device, flops/device "
+              f"{v['cost']['flops_per_device']:.4e}, collective bytes {coll}, dominant "
+              f"{v['roofline']['dominant']}, n_micro {v['n_micro']}")
+
+
 def flash_figures(errs, launches):
     """Kernel, plain version and SDPA at the serving path's longest prefill.
 
@@ -3722,6 +4110,18 @@ def main() -> int:
         print(f"{name} step under the profiler: {v['step_ms']:.3f} ms, "
               f"{v['device_ops_per_step']:.0f} device ops per step, device busy "
               f"{v['device_busy_share']}")
+    # sharding and the dry-run: the sharded paths on the card, the dry-run
+    # traced on a fake process group; its launches join the kernel rows
+    print(f"[{time.perf_counter() - start:.1f} s] sharding and the dry-run")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as dry_tmp:
+        sharding, paths = run_sharding_phase(kernels, dry_tmp)
+    print_sharding(sharding, card)
+    for row in rows:
+        label = row_label.get(row["name"], row["name"])
+        row["launches_by_path"].update({p: c[label] for p, c in paths.items()})
+        row["launches"] += sum(c[label] for c in paths.values())
+    print(f"  the phase {time.perf_counter() - t0:.1f} s")
     print(f"[{time.perf_counter() - start:.1f} s] done")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -3,12 +3,14 @@
 Port of `benchmarks/run.py`:
 
     python -m repro_torch.benchmarks.run [--full] [--only NAME] [--torch-device cpu]
+        [--dryrun-dir experiments/dryrun]
 
 executes the quick variants of every benchmark and finishes with a
 `name,us_per_call,derived` CSV summary.  Pass --full for paper-scale
-budgets.  Two of the reference's benchmarks are not ported yet: a full
-run says so in its output and its summary, and `--only` with either name
-raises `NotImplementedError`.
+budgets.  `roofline` reads the dry-run's artifacts from --dryrun-dir
+(`repro_torch.benchmarks.roofline`).  The placement service benchmark is
+not ported yet: a full run says so in its output and its summary, and
+`--only placement_service` raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -20,8 +22,6 @@ from contextlib import redirect_stdout
 NOT_PORTED = {
     "placement_service": "benchmarks/bench_service.py is not ported yet "
                          "(ROADMAP queue 1 item 10b: bench_torch.py)",
-    "roofline": "the roofline reads XLA dry-run artifacts and is not ported yet "
-                "(ROADMAP queue 1 item 11.5; its --kernels mode waits for item 10b)",
 }
 
 
@@ -41,13 +41,14 @@ def main(argv=None) -> None:
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--only", default=None)
     ap.add_argument("--torch-device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--dryrun-dir", default="experiments/dryrun")
     args = ap.parse_args(argv)
     quick, dev = not args.full, args.torch_device
     if args.only in NOT_PORTED:
         raise NotImplementedError(f"{args.only}: {NOT_PORTED[args.only]}")
 
     from repro_torch.benchmarks import (fig7_convergence, fig8_cooling,
-                                        fig9_pipelining, table1,
+                                        fig9_pipelining, roofline, table1,
                                         table2_transfer)
 
     benches = {
@@ -60,7 +61,7 @@ def main(argv=None) -> None:
             quick=quick, torch_device=dev),
         "table2_transfer": lambda: table2_transfer.main(
             quick=quick, torch_device=dev),
-        "roofline": None,
+        "roofline": lambda: roofline.main(args.dryrun_dir),
     }
     rows = []
     for name, fn in benches.items():

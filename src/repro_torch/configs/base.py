@@ -1,16 +1,22 @@
-"""Architecture registry (--arch <id>), shape registry, reduced variants.
+"""Architecture registry (--arch <id>), shape registry, reduced variants,
+input specs.
 
 Port of `repro/configs/base.py`.  Each architecture lives in its own
 module (`configs/<id>.py`, copied from the reference with only the import
-line changed) exporting CONFIG.  The reference's `input_specs`, which builds
-JAX ShapeDtypeStructs for its dry-run, has no counterpart here.
+line changed) exporting CONFIG.  `input_specs` gives the model inputs of
+an (arch, shape) cell as tensors without storage (device "meta", or the
+device of the caller's fake-tensor mode): the dry-run's stand-ins for the
+reference's ShapeDtypeStructs.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Any, Dict, Optional
 
+import torch
+
+from repro_torch.models import stubs
 from repro_torch.models.transformer import ArchConfig
 
 ARCHS = (
@@ -38,11 +44,22 @@ SHAPES: Dict[str, ShapeSpec] = {
 }
 
 
+def list_archs():
+    return ARCHS
+
+
 def get_arch(name: str) -> ArchConfig:
     if name == "vu_systolic":      # the paper's own design, for EA dry-runs
         raise KeyError("vu_systolic is a placement config; use repro_torch.fpga")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE[name]}")
     return mod.CONFIG
+
+
+def shape_applicable(cfg: ArchConfig, shape: str) -> bool:
+    """long_500k needs sub-quadratic attention (the reference's skip table)."""
+    if shape == "long_500k":
+        return cfg.subquadratic
+    return True
 
 
 def get_reduced(name: str) -> ArchConfig:
@@ -71,3 +88,30 @@ def get_reduced(name: str) -> ArchConfig:
         d_expert=32 if c.d_expert else 0,
         n_frontend_tokens=8 if c.frontend else 0,
     )
+
+
+def input_specs(cfg: ArchConfig, shape: str, max_cache: Optional[int] = None,
+                device="meta") -> Dict[str, Any]:
+    """Storage-free int32 stand-ins for every model input of (arch, shape).
+
+    train:   {tokens, targets [, frontend_embeds]}
+    prefill: {tokens [, frontend_embeds]}
+    decode:  {token, cache_len}  (the caches are built by the dry-run)
+    """
+    ss = SHAPES[shape]
+    b, s = ss.global_batch, ss.seq_len
+
+    def i32(*dims):
+        return torch.empty(dims, dtype=torch.int32, device=device)
+
+    if ss.kind in ("train", "prefill"):
+        out = {"tokens": i32(b, s)}
+        if ss.kind == "train":
+            out["targets"] = i32(b, s)
+        fe = stubs.frontend_spec(cfg.frontend, b, cfg.n_frontend_tokens, cfg.d_model, device)
+        if fe is not None:
+            out["frontend_embeds"] = fe
+        return out
+    if ss.kind == "decode":
+        return {"token": i32(b), "cache_len": i32(b)}
+    raise ValueError(ss.kind)

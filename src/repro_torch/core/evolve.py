@@ -80,7 +80,8 @@ def run(problem: Problem, algo: str, cfg, gen: torch.Generator, n_gens: int,
 
 
 def run_islands(problem: Problem, algo: str, cfg, gen: torch.Generator, rounds: int,
-                gens_per_round: int, group=None, device="cuda") -> Tuple[Dict, torch.Tensor]:
+                gens_per_round: int, group=None, device="cuda", mesh=None,
+                axis="data") -> Tuple[Dict, torch.Tensor]:
     """Island-model evolution, one island per rank of `group` (population
     algorithms: NSGA-II, the GA).
 
@@ -91,10 +92,16 @@ def run_islands(problem: Problem, algo: str, cfg, gen: torch.Generator, rounds: 
     gathered over the ranks (`islands.Ring.all_gather`), and island r
     adopts island (r + 1) % W's into its worst member.  Returns the states
     stacked [W, ...] and the history [rounds, W, 2] of each island's best
-    after each round, on every rank.
+    after each round, on every rank.  A `mesh` (a `DeviceMesh`) puts one
+    island on each of its ranks over the dim `axis`, or over a tuple of
+    dims flattened, as the reference's shard_map over `axis` does; it
+    takes the place of `group`.
     """
     from repro_torch.core import islands as I
     from repro_torch.core import portfolio
+    from repro_torch.runtime import collectives
+    if mesh is not None:
+        group = collectives.group_of(mesh, axis)
     if algo not in ("nsga2", "ga"):
         raise ValueError(f"run_islands takes population algorithms (nsga2, ga), not {algo!r}")
     dev = resolve_device(device)

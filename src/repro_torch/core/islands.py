@@ -1,6 +1,6 @@
 """Island-model evolution: P sub-populations, ring migration, one batched program.
 
-Port of `repro/core/islands.py`, on one device.  P independent
+Port of `repro/core/islands.py`.  P independent
 sub-populations ("islands") of any algorithm evolve side by side and pass
 their champions around a ring every `migrate_every` generations.  The
 island axis is one more batch axis: each generation is one
@@ -41,8 +41,9 @@ tensors themselves, device to device; `gloo` sends no CUDA tensor, so each
 payload is copied to the host explicitly and back after the receive.  One
 H100 takes one NCCL rank only, so ranks that share a card run `gloo` with
 that host staging: the reference's "no host round-trip" holds only across
-several cards.  The reference's `mesh=` (a DeviceMesh) waits for sharding:
-passing one raises.
+several cards.  `mesh=` (a `DeviceMesh` with an "islands" dim, the
+reference's shard_map axis) spreads the islands over that dim's process
+group, the same `group=` path.
 """
 from __future__ import annotations
 
@@ -58,10 +59,9 @@ from repro_torch.core import evolve, hyper, portfolio, warmstart
 from repro_torch.core import genotype as G
 from repro_torch.core import objectives as O
 from repro_torch.fpga.netlist import Problem
+from repro_torch.runtime import collectives
 
-MESH_NOT_PORTED = ("islands over a device mesh wait for sharding (DeviceMesh; "
-                   "ROADMAP.md, queue 1 item 11.5); pass group= (a torch.distributed "
-                   "process group) to spread islands over processes")
+AXIS = "islands"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,13 +179,8 @@ class Ring:
     def all_gather(self, tree, dim: int = 0):
         """Every rank's `tree`, each leaf concatenated along `dim` in rank order."""
         leaves, spec = _pytree.tree_flatten(tree)
-        out = []
-        for a in leaves:
-            a = a.to(self.wire).contiguous()
-            parts = [torch.empty_like(a) for _ in range(self.size)]
-            dist.all_gather(parts, a, group=self.group)
-            out.append(torch.cat(parts, dim=dim).to(self.device))
-        return _pytree.tree_unflatten(out, spec)
+        return _pytree.tree_unflatten(
+            [torch.cat(collectives.gather_list(a, self.group), dim=dim) for a in leaves], spec)
 
 
 def migrate_ring(state: Dict, ring: Optional[Ring] = None) -> Dict:
@@ -374,7 +369,7 @@ def _process_group(n: int, group):
 
 def run(problem: Problem, algo: str, cfg, gen: torch.Generator, n_gens: int,
         islands: IslandConfig = IslandConfig(), mesh=None, device="cuda",
-        group=None) -> Tuple[Dict, torch.Tensor]:
+        group=None, shard="auto") -> Tuple[Dict, torch.Tensor]:
     """P islands of a full optimisation on `device`, drawing from `gen`.
 
     Returns (island-stacked states ``[P, ...]``, per-island history
@@ -382,17 +377,26 @@ def run(problem: Problem, algo: str, cfg, gen: torch.Generator, n_gens: int,
     Over a process group (`group`, or the default one when it is
     initialised and its size divides P) every rank passes a `gen` seeded alike,
     builds the same P island generators, evolves its own P / W islands and
-    returns the whole result, the single-process run's.
+    returns the whole result, the single-process run's.  A `mesh` must
+    have an "islands" dim whose size divides P; its process group is the
+    `group`.  Without either, `shard="auto"` uses the default group as
+    `_process_group` says and `shard=False` keeps every island in this
+    process.
     """
     if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+        names = mesh.mesh_dim_names or ()
+        if AXIS not in names or islands.n_islands % collectives.axis_size(mesh, AXIS):
+            raise ValueError(f"mesh must carry an {AXIS!r} axis dividing n_islands="
+                             f"{islands.n_islands}; got axes {names} shape {tuple(mesh.shape)}")
+        group = collectives.group_of(mesh, AXIS)
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator is on {gen.device}, run on {dev}")
     cfg = hyper.tracify(cfg, dev)
     static_key, traced = hyper.split_fields(cfg)
     gens = island_generators(gen, islands.n_islands)
-    group = _process_group(islands.n_islands, group)
+    if group is not None or shard == "auto":
+        group = _process_group(islands.n_islands, group)
     if group is None:
         state = member_init(problem, algo, static_key, islands, traced, gens)
         return round_impl(problem, algo, islands, cfg, state, gens, n_gens, 0)

@@ -51,8 +51,9 @@ serves Prometheus text at `/metrics` (0 = an ephemeral port, printed),
 `--trace-file P` writes trace events as JSONL (also `REPRO_TRACE_FILE`),
 `--chrome-trace P` a Chrome trace of every span at exit, `--metrics-dump P`
 the exposition body at exit, and `--profile-dir D` a `torch.profiler`
-trace of the workload under D.  The dry-run (`--dry-run`) is not ported
-yet.
+trace of the workload under D.  `--arch A --dry-run [--shape S]
+[--multi-pod]` traces the full config's step on the production mesh through
+`launch.dryrun`, in a fresh interpreter.
 
 Both run on the CUDA card unless `--torch-device cpu` is given, and raise
 when there is no card.
@@ -374,7 +375,9 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--torch-device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--dry-run", action="store_true",
-                    help="not ported yet (ROADMAP queue 1 item 11.5)")
+                    help="trace the full config's step on the production mesh")
+    ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--multi-pod", action="store_true")
     # placement-service mode
     ap.add_argument("--placement", action="store_true",
                     help="serve placement jobs instead of an LM")
@@ -468,11 +471,15 @@ def main(argv=None) -> None:
         finally:
             finalize()
         return
-    if args.dry_run:
-        raise NotImplementedError("--dry-run: the dry-run is not ported yet "
-                                  "(ROADMAP queue 1 item 11.5)")
     if args.arch is None:
         ap.error("--arch is required")
+    if args.dry_run:     # a fresh interpreter: the fake process group is process-global
+        import subprocess
+
+        from repro_torch.launch import dryrun
+        cmd, env = dryrun.command(args.arch, args.shape, args.multi_pod,
+                                  device=args.torch_device)
+        raise SystemExit(subprocess.run(cmd, env=env).returncode)
 
     dev = resolve_device(args.torch_device)
     cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)

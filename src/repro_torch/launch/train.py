@@ -4,20 +4,19 @@ Port of `repro/launch/train.py`:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
         [--reduced] [--steps 100] [--ckpt-dir DIR] [--batch 8] [--seq 128] \
-        [--torch-device cuda|cpu]
+        [--torch-device cuda|cpu] [--dry-run [--multi-pod]]
 
 Trains the config (the family-preserving reduced one with --reduced)
 through `train.trainer.Trainer` on one device, fp32, and prints each logged
 row.  The fault-tolerance knobs (checkpoint cadence, recovery) ride on the
-trainer.  `--dry-run` and `--multi-pod` (the reference's lowering on a
-production mesh) wait for sharding and raise.
+trainer.  `--dry-run` traces the full config's train_4k step on the 16x16
+production mesh (2x16x16 with `--multi-pod`) through `launch.dryrun`, in a
+fresh interpreter: its fake process group is process-global.
 """
 import argparse
+import subprocess
 
 import torch
-
-NOT_PORTED = ("{flag}: the dry-run and the multi-pod mesh are not ported yet "
-              "(ROADMAP queue 1 item 11.5)")
 
 
 def main(argv=None):
@@ -27,7 +26,7 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="run the family-preserving reduced config")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower the full config on the production mesh (not ported)")
+                    help="trace the full config's train step on the 16x16 mesh")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--batch", type=int, default=8)
@@ -35,9 +34,13 @@ def main(argv=None):
     ap.add_argument("--torch-device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    for flag in ("dry_run", "multi_pod"):
-        if getattr(args, flag):
-            raise NotImplementedError(NOT_PORTED.format(flag="--" + flag.replace("_", "-")))
+    if args.multi_pod and not args.dry_run:
+        ap.error("--multi-pod applies to --dry-run")
+    if args.dry_run:
+        from repro_torch.launch import dryrun
+        cmd, env = dryrun.command(args.arch, "train_4k", args.multi_pod,
+                                  device=args.torch_device)
+        raise SystemExit(subprocess.run(cmd, env=env).returncode)
 
     from repro_torch.configs import get_arch, get_reduced
     from repro_torch.data.pipeline import DataConfig

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import modules as M
+from repro_torch.sharding import logical
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,15 +51,15 @@ class MambaArgs:
 def specs(a: MambaArgs) -> Dict[str, M.ParamSpec]:
     di = a.d_inner
     return {
-        "in_proj": M.dense_spec(a.d_model, 2 * di),
-        "conv_w": M.ParamSpec((a.d_conv, di), "normal", 0.5),
-        "conv_b": M.ParamSpec((di,), "zeros"),
-        "x_proj": M.dense_spec(di, a.rank + 2 * a.d_state),
-        "dt_proj": M.dense_spec(a.rank, di),
-        "dt_bias": M.ParamSpec((di,), "const", 0.1),
-        "a_log": M.ParamSpec((di, a.d_state), "const", 0.0),
-        "d_skip": M.ParamSpec((di,), "ones"),
-        "out_proj": M.dense_spec(di, a.d_model),
+        "in_proj": M.dense_spec(a.d_model, 2 * di, axes=("embed", "ssm_inner")),
+        "conv_w": M.ParamSpec((a.d_conv, di), "normal", 0.5, (None, "ssm_inner")),
+        "conv_b": M.ParamSpec((di,), "zeros", axes=("ssm_inner",)),
+        "x_proj": M.dense_spec(di, a.rank + 2 * a.d_state, axes=("ssm_inner", None)),
+        "dt_proj": M.dense_spec(a.rank, di, axes=(None, "ssm_inner")),
+        "dt_bias": M.ParamSpec((di,), "const", 0.1, ("ssm_inner",)),
+        "a_log": M.ParamSpec((di, a.d_state), "const", 0.0, ("ssm_inner", "ssm_state")),
+        "d_skip": M.ParamSpec((di,), "ones", axes=("ssm_inner",)),
+        "out_proj": M.dense_spec(di, a.d_model, axes=("ssm_inner", "embed")),
     }
 
 
@@ -116,6 +117,7 @@ class Mamba(nn.Module):
                              f"the {ch}-token chunk")
         u_raw, gate = torch.chunk(M.dense(x, self.in_proj), 2, dim=-1)   # [B, S, di]
         u = F.silu(_causal_conv(u_raw, self.conv_w, self.conv_b))
+        u = logical.constrain(u, "batch", "seq", "ssm_inner")
         a_mat = -torch.exp(self.a_log.float())                            # [di, ds]
         h = torch.zeros((x.shape[0], a.d_inner, a.d_state), dtype=torch.float32,
                         device=x.device)
@@ -134,7 +136,7 @@ class Mamba(nn.Module):
                 h = hs[:, -1]
         y = torch.cat(ys, 1) * F.silu(gate)
         cache = {"conv": u_raw[:, -(a.d_conv - 1):], "h": h}
-        return M.dense(y, self.out_proj), cache
+        return logical.constrain(M.dense(y, self.out_proj), "batch", "seq", "embed"), cache
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply_and_cache(x)[0]

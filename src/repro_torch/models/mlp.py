@@ -11,13 +11,14 @@ import torch
 from torch import nn
 
 from repro_torch.models import modules as M
+from repro_torch.sharding import logical
 
 
 def specs(d_model: int, d_ff: int) -> Dict[str, M.ParamSpec]:
     return {
-        "wg": M.dense_spec(d_model, d_ff),
-        "wu": M.dense_spec(d_model, d_ff),
-        "wd": M.dense_spec(d_ff, d_model),
+        "wg": M.dense_spec(d_model, d_ff, axes=("embed", "mlp")),
+        "wu": M.dense_spec(d_model, d_ff, axes=("embed", "mlp")),
+        "wd": M.dense_spec(d_ff, d_model, axes=("mlp", "embed")),
     }
 
 
@@ -28,4 +29,5 @@ class MLP(nn.Module):
         M.build(self, specs(d_model, d_ff), generator, device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return M.swiglu(x, self.wg, self.wu, self.wd)
+        return logical.constrain(M.swiglu(x, self.wg, self.wu, self.wd),
+                                 "batch", "seq", "embed")

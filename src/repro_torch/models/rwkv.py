@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import modules as M
+from repro_torch.sharding import logical
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,28 +44,29 @@ class RWKVArgs:
 
 def specs(a: RWKVArgs) -> Dict[str, object]:
     d = a.d_model
-    half = M.ParamSpec((d,), "const", 0.5)
+    emb = ("embed",)
+    half = M.ParamSpec((d,), "const", 0.5, emb)
     return {
-        "ln1": M.ParamSpec((d,), "ones"),
-        "ln2": M.ParamSpec((d,), "ones"),
+        "ln1": M.ParamSpec((d,), "ones", axes=emb),
+        "ln2": M.ParamSpec((d,), "ones", axes=emb),
         "tm": {  # time-mix
             "mu_r": half, "mu_k": half, "mu_v": half, "mu_g": half, "mu_w": half,
-            "wr": M.dense_spec(d, d),
-            "wk": M.dense_spec(d, d),
-            "wv": M.dense_spec(d, d),
-            "wg": M.dense_spec(d, d),
-            "wo": M.dense_spec(d, d),
+            "wr": M.dense_spec(d, d, axes=("embed", "q_flat")),
+            "wk": M.dense_spec(d, d, axes=("embed", "q_flat")),
+            "wv": M.dense_spec(d, d, axes=("embed", "q_flat")),
+            "wg": M.dense_spec(d, d, axes=("embed", "q_flat")),
+            "wo": M.dense_spec(d, d, axes=("q_flat", "embed")),
             # data-dependent decay: w = exp(-exp(w0 + tanh(x A) B))
-            "w0": M.ParamSpec((d,), "const", -0.6),
-            "wa": M.dense_spec(d, a.decay_rank, 0.01),
-            "wb": M.dense_spec(a.decay_rank, d, 0.01),
-            "u": M.ParamSpec((d,), "const", 0.3),  # bonus
+            "w0": M.ParamSpec((d,), "const", -0.6, emb),
+            "wa": M.dense_spec(d, a.decay_rank, 0.01, ("embed", None)),
+            "wb": M.dense_spec(a.decay_rank, d, 0.01, (None, "embed")),
+            "u": M.ParamSpec((d,), "const", 0.3, emb),  # bonus
         },
         "cm": {  # channel-mix
             "mu_r": half, "mu_k": half,
-            "wr": M.dense_spec(d, d),
-            "wk": M.dense_spec(d, a.d_ff),
-            "wv": M.dense_spec(a.d_ff, d),
+            "wr": M.dense_spec(d, d, axes=("embed", None)),
+            "wk": M.dense_spec(d, a.d_ff, axes=("embed", "mlp")),
+            "wv": M.dense_spec(a.d_ff, d, axes=("mlp", "embed")),
         },
     }
 
@@ -104,8 +106,8 @@ def time_mix(tm, a: RWKVArgs, x: torch.Tensor, state: torch.Tensor, x_last: torc
             outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + u * kv))
             S = w[:, t, :, :, None] * S + kv
     out = torch.stack(outs, dim=1).reshape(b, s, d).to(x.dtype)
-    out = out * F.silu(g)
-    return M.dense(out, tm.wo), S, x[:, -1]
+    out = logical.constrain(out * F.silu(g), "batch", "seq", "q_flat")
+    return logical.constrain(M.dense(out, tm.wo), "batch", "seq", "embed"), S, x[:, -1]
 
 
 def channel_mix(cm, x: torch.Tensor, x_last: torch.Tensor
@@ -113,7 +115,7 @@ def channel_mix(cm, x: torch.Tensor, x_last: torch.Tensor
     xprev = _shift(x, x_last)
     r = torch.sigmoid(M.dense(_mix(x, xprev, cm.mu_r), cm.wr))
     k = torch.square(torch.relu(M.dense(_mix(x, xprev, cm.mu_k), cm.wk)))
-    return r * M.dense(k, cm.wv), x[:, -1]
+    return logical.constrain(r * M.dense(k, cm.wv), "batch", "seq", "embed"), x[:, -1]
 
 
 def init_state(a: RWKVArgs, batch: int, device="cpu") -> Dict[str, torch.Tensor]:

@@ -4,9 +4,8 @@ Port of `repro/models/stubs.py`.  llava-next and musicgen are served as
 transformer backbones: the vision tower and the EnCodec tokenizer are
 stubs whose output -- patch or frame embeddings in d_model -- arrives as
 a model input (`Transformer.forward` / `prefill`'s `frontend_embeds`),
-prepended to the token embeddings.  The reference's `frontend_spec` builds
-a JAX ShapeDtypeStruct for its dry-run and has no counterpart here until
-the dry-run is ported (ROADMAP queue 1 item 11.5).
+prepended to the token embeddings.  `frontend_spec` is the dry-run's
+storage-free stand-in for that input (`configs.base.input_specs`).
 """
 from __future__ import annotations
 
@@ -32,3 +31,13 @@ def synth_frontend(generator: torch.Generator, kind: str, batch: int, n_tokens: 
     x = torch.randn((batch, n_tokens, d_model), generator=generator,
                     device=generator.device, dtype=torch.float32)
     return (x * scale).to(dtype)
+
+
+def frontend_spec(kind: Optional[str], batch: int, n_tokens: int, d_model: int,
+                  device="meta") -> Optional[torch.Tensor]:
+    """A bf16 [batch, n_tokens, d_model] tensor without storage (device
+    "meta", or that of the caller's fake-tensor mode); None without a
+    frontend."""
+    if kind is None:
+        return None
+    return torch.empty((batch, n_tokens, d_model), dtype=torch.bfloat16, device=device)

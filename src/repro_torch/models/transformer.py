@@ -33,11 +33,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, mamba, mlp, moe, rwkv
 from repro_torch.models import modules as M
+from repro_torch.sharding import logical
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,13 +143,6 @@ class ArchConfig:
 
 # ------------------------------------------------------------------ model
 
-def _pad_cache(kv: torch.Tensor, max_len: int) -> torch.Tensor:
-    s = kv.shape[2]
-    if s >= max_len:
-        return kv[:, :, :max_len].contiguous()
-    return F.pad(kv, (0, 0, 0, max_len - s))
-
-
 class Block(nn.Module):
     """The block at pattern position `pos`: RWKV (its own channel-mix FFN),
     or pre-norm attention / mamba followed by a pre-norm MoE or SwiGLU."""
@@ -161,13 +156,13 @@ class Block(nn.Module):
         if self.mixer == "rwkv":
             self.rwkv = rwkv.RWKV(cfg.rwkv_args(), **kw)
             return
-        ones = M.ParamSpec((cfg.d_model,), "ones")
-        self.ln1 = M.param(ones, generator, device, dtype)
+        ones = M.ParamSpec((cfg.d_model,), "ones", axes=("embed",))
+        M.put(self, "ln1", ones, generator, device, dtype)
         if self.mixer == "mamba":
             self.mamba = mamba.Mamba(cfg.mamba_args(), **kw)
         else:
             self.attn = attention.Attention(cfg.attn_args(self.mixer == "attn_local"), **kw)
-        self.ln2 = M.param(ones, generator, device, dtype)
+        M.put(self, "ln2", ones, generator, device, dtype)
         if self.ffn == "moe":
             self.moe = moe.MoE(cfg.moe_args(), **kw)
         elif self.ffn == "mlp":
@@ -202,8 +197,7 @@ class Block(nn.Module):
         if self.mixer == "mamba":
             y, cache = self.mamba.apply_and_cache(self._norm1(x))
         else:
-            y, kv = self.attn.apply_and_cache(self._norm1(x))
-            cache = {k: _pad_cache(v, max_len) for k, v in kv.items()}
+            y, cache = self.attn.apply_and_cache(self._norm1(x), max_len)
         return self._ffn(x + y)[0], cache
 
     def decode_step(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -229,22 +223,31 @@ class Transformer(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype, generator=generator)
-        self.embed = M.param(M.ParamSpec((cfg.vocab, cfg.d_model), "normal", 0.02),
-                             generator, device, dtype)
+        M.put(self, "embed", M.ParamSpec((cfg.vocab, cfg.d_model), "normal", 0.02,
+                                         ("vocab", "embed")), generator, device, dtype)
         self.blocks = nn.ModuleList(Block(cfg, layer % cfg.period, **kw)
                                     for layer in range(cfg.n_layers))
-        self.ln_f = M.param(M.ParamSpec((cfg.d_model,), "ones"), generator, device, dtype)
-        self.head = M.param(M.dense_spec(cfg.d_model, cfg.vocab, scale=0.02),
-                            generator, device, dtype)
+        M.put(self, "ln_f", M.ParamSpec((cfg.d_model,), "ones", axes=("embed",)),
+              generator, device, dtype)
+        M.put(self, "head", M.dense_spec(cfg.d_model, cfg.vocab, scale=0.02,
+                                         axes=("embed", "vocab")), generator, device, dtype)
 
     def _embed(self, tokens: torch.Tensor,
                frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
         # F.embedding, not indexing: its backward sums each row's gradients
         # in a fixed order, where index_put's accumulation adds with atomics
         x = F.embedding(tokens, self.embed)
+        if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+            # a vocab-sharded table gives masked partial rows: reduce them
+            # here, and have their gradient arrive in the reduced layout
+            # (DTensor cannot turn a summed-partial gradient back into a
+            # masked one)
+            x = logical.constrain(x, "batch", "seq", "embed")
+            x = DTensor.from_local(x.to_local(grad_placements=x.placements), x.device_mesh,
+                                   x.placements, run_check=False)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
-        return x
+        return logical.constrain(x, "batch", "seq", "embed")
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = M.rmsnorm(x, self.ln_f, self.cfg.norm_eps)
@@ -272,7 +275,7 @@ class Transformer(nn.Module):
             else:
                 x, a = self._period(x, first)
             aux = aux + a
-        return self._logits(x), aux
+        return logical.constrain(self._logits(x), "batch", "seq", "vocab"), aux
 
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16
                     ) -> List[Dict[str, torch.Tensor]]:
@@ -315,7 +318,7 @@ class Transformer(nn.Module):
         """token [B] -> (logits [B, V] fp32, the updated per-layer state; KV
         caches are written in place).  cache_len [B]: the filled length,
         the same for every layer."""
-        x = self.embed[token][:, None, :]
+        x = self._embed(token[:, None], None)
         new = []
         for block, c in zip(self.blocks, caches):
             x, c = block.decode_step(x, c, cache_len)
@@ -333,3 +336,13 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]
     f = 0 if fe is None else fe.shape[1]
     xent = M.softmax_xent(logits[:, f:, :], batch["targets"], batch.get("mask"))
     return xent + aux, {"xent": xent, "aux": aux}
+
+
+def param_axes(model: nn.Module) -> Dict[str, Tuple[Optional[str], ...]]:
+    """The logical axes of every parameter of `model`, by its name in
+    `named_parameters`, as its module's specs declare them."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for name, axes in mod.__dict__.get("_axes", {}).items():
+            out[f"{prefix}.{name}" if prefix else name] = axes
+    return {n: out[n] for n, _ in model.named_parameters()}

@@ -9,14 +9,17 @@ puts the updated tensors in the parameters' place (no copy, no write in
 place: an fp32 parameter then shares its master's storage).  With
 `n_micro` > 1 the batch is cut into `n_micro` slices along its first axis
 and their fp32 gradients are summed and divided once, as the reference's
-`lax.scan` accumulation does.  There are no shardings or donation: the
-port runs on one device.
+`lax.scan` accumulation does.  The same step runs on DTensor parameters
+and batches (the dry-run): a batch sharded on its first axis is cut
+within each rank's shard, so no microbatch moves a row between ranks.
+There is no donation.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ArchConfig, Transformer
@@ -30,10 +33,14 @@ def params_of(model: Transformer) -> Dict[str, torch.Tensor]:
 
 def set_params(model: Transformer, params: Dict[str, torch.Tensor]) -> None:
     """Put `params` in the model's parameters' place (their storage, not a
-    copy of their values); shapes and dtypes must agree."""
+    copy of their values); shapes and dtypes must agree.  A DTensor laid
+    out otherwise than its parameter is redistributed to the parameter's
+    layout first."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             new = params[name]
+            if isinstance(p, DTensor) and tuple(new.placements) != tuple(p.placements):
+                new = new.redistribute(p.device_mesh, p.placements)   # ZeRO-1's gather
             if new.shape != p.shape or new.dtype != p.dtype:
                 raise ValueError(f"{name}: {tuple(new.shape)} {new.dtype} for a parameter "
                                  f"{tuple(p.shape)} {p.dtype}")
@@ -54,6 +61,18 @@ def loss_and_grads(model: Transformer, batch: Dict[str, torch.Tensor]):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(zip(names, grads))
 
 
+def microbatches(batch: Dict[str, torch.Tensor], n_micro: int):
+    """`batch` cut into `n_micro` slices along its first axis; a DTensor
+    sharded there is cut within each rank's local shard."""
+    def part(v, i):
+        if isinstance(v, DTensor) and any(p == Shard(0) for p in v.placements):
+            return DTensor.from_local(v.to_local().tensor_split(n_micro)[i], v.device_mesh,
+                                      v.placements, run_check=False)
+        return v.tensor_split(n_micro)[i]
+
+    return [{k: part(v, i) for k, v in batch.items()} for i in range(n_micro)]
+
+
 def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig, n_micro: int = 1) -> Callable:
     """Returns train_step(model, opt_state, batch) -> (opt_state', metrics),
     which replaces the model's parameters by the updated ones."""
@@ -67,9 +86,8 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig, n_micro: int = 1) -> C
             if any(v.shape[0] % n_micro for v in batch.values()):
                 raise ValueError(f"a batch of {next(iter(batch.values())).shape[0]} rows "
                                  f"does not split into {n_micro} microbatches")
-            mbs = [{k: v.tensor_split(n_micro)[i] for k, v in batch.items()}
-                   for i in range(n_micro)]
-            acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            mbs = microbatches(batch, n_micro)
+            acc = {n: torch.zeros_like(p, dtype=torch.float32)
                    for n, p in model.named_parameters()}
             losses, metricss = [], []
             for mb in mbs:

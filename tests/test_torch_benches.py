@@ -11,6 +11,7 @@ legal champions, non-increasing histories, evaluations as the reference
 counts them.
 """
 import io
+import json
 import sys
 from contextlib import redirect_stdout
 from pathlib import Path
@@ -221,9 +222,27 @@ def test_fig9_runner(monkeypatch):
 
 
 @pytest.mark.parametrize("name,item", [("placement_service", "10b"), ("roofline", "11.5")])
-def test_run_only_not_ported_raises(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run.main(["--only", name, "--torch-device", "cpu"])
+def test_run_only_not_ported_raises(name, item, tmp_path, capsys):
+    """placement_service still raises naming item 10b; roofline (item 11.5,
+    ported) reads the dry-run directory it is given."""
+    if name == "placement_service":
+        with pytest.raises(NotImplementedError, match=item):
+            run.main(["--only", name, "--torch-device", "cpu"])
+        return
+    cell = {"arch": "yi-6b", "shape": "decode_32k", "mesh": "pod16x16", "status": "ok",
+            "memory": {"peak_estimate_bytes": 2 ** 30},
+            "roofline": {"compute_s": 1e-3, "memory_s": 4e-3, "collective_s": 2e-3,
+                         "dominant": "memory_s", "useful_ratio": 0.5,
+                         "model_flops": 256 * 989e12 * 1e-3}}
+    (tmp_path / "yi-6b__decode_32k__pod16x16.json").write_text(json.dumps(cell))
+    run.main(["--only", name, "--torch-device", "cpu", "--dryrun-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "yi-6b,decode_32k,pod16x16,ok,1.00,0.0010,0.0040,0.0020,memory_s,0.500,0.2500" in out
+    assert "#  worst roofline fraction: yi-6b x decode_32k (0.2500)" in out
+    assert "roofline," in out.splitlines()[-1]
+    from repro_torch.benchmarks import roofline
+    with pytest.raises(NotImplementedError, match="10b"):
+        roofline.cli(["--kernels"])
 
 
 def test_run_summary(monkeypatch, capsys):

@@ -147,7 +147,7 @@ def test_flash_dispatch_off_cpu_never_falls_back(monkeypatch):
     with pytest.raises(NotImplementedError, match="logit_soft_cap"):
         ops.flash_attention(tq, tk, tv, True, None, 30.0)
     calls = []
-    monkeypatch.setattr(tfa, "flash_attention", lambda *a: calls.append(a) or a[0])
+    monkeypatch.setattr(tfa, "flash_attention", lambda *a: calls.append(a) or a[0].clone())
     k_strided = torch.cat([tk, tk], dim=-1)[..., ::2]
     assert not k_strided.is_contiguous()
     ops.flash_attention(tq, k_strided, tv, True, 4)

@@ -9,6 +9,7 @@ counts global generations (two half rounds are one round; the host-decided
 and the tensor `g0` forms agree).  Every vmapped body runs with vmap's
 per-slice fallback warning turned into an error.
 """
+import types
 import warnings
 
 import jax
@@ -205,9 +206,15 @@ def test_warm_seed_lands_on_island_0(case):
 
 
 def test_a_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 11.5"):
-        TI.run(PORT, "nsga2", TN.NSGA2Config(pop_size=4), torch.Generator(), 1,
-               TI.IslandConfig(2, 1), mesh=object(), device="cpu")
+    """A mesh without an "islands" dim dividing P raises the reference's
+    ValueError before any process group is touched (the mesh path itself
+    runs in tests/test_torch_sharding_dist.py)."""
+    for names, shape in ((("data",), (2,)), (("islands",), (3,))):
+        mesh = types.SimpleNamespace(mesh_dim_names=names, shape=shape,
+                                     size=lambda i=0, s=shape: s[i])
+        with pytest.raises(ValueError, match="'islands' axis dividing n_islands=2"):
+            TI.run(PORT, "nsga2", TN.NSGA2Config(pop_size=4), torch.Generator(), 1,
+                   TI.IslandConfig(2, 1), mesh=mesh, device="cpu")
     sk, traced = TH.split_fields(TH.tracify(TN.NSGA2Config(pop_size=4), "cpu"))
     with pytest.raises(ValueError, match="1 generators for 2 islands"):
         TI.member_init(PORT, "nsga2", sk, TI.IslandConfig(2, 1), traced, [torch.Generator()])

@@ -18,6 +18,8 @@ import ast
 import contextlib
 import dataclasses
 import io
+import subprocess
+import types
 
 import jax
 import jax.numpy as jnp
@@ -167,8 +169,16 @@ def test_launcher_guards():
                  ["--placement", "--cache", "--autoscale"]):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             serve.main(argv)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve.main(["--arch", "yi-6b", "--dry-run"])
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(subprocess, "run", lambda cmd, env: calls.append(cmd) or
+                   types.SimpleNamespace(returncode=0))
+        with pytest.raises(SystemExit) as e:
+            serve.main(["--arch", "yi-6b", "--dry-run", "--shape", "prefill_32k", "--multi-pod"])
+    assert e.value.code == 0
+    assert calls[0][1:] == ["-m", "repro_torch.launch.dryrun", "--arch", "yi-6b", "--shape",
+                            "prefill_32k", "--out", "experiments/dryrun", "--device", "cuda",
+                            "--multi-pod"]
 
 
 @pytest.mark.parametrize("name", ARCHS)

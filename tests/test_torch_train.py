@@ -30,6 +30,7 @@ rate.  Each reference program is jitted once per architecture.
 """
 import dataclasses
 import os
+import types
 from pathlib import Path
 
 import jax
@@ -455,10 +456,25 @@ def test_int8_compression_error_feedback_unbiased():
     np.testing.assert_allclose((acc / 200).numpy(), g_true.numpy(), atol=0.05)
 
 
-def test_launcher_dry_run_names_the_sharding_item():
-    for flag in ("--dry-run", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="item 11.5"):
-            launch_train.main(["--arch", "yi-6b", flag])
+def test_launcher_dry_run_names_the_sharding_item(monkeypatch):
+    """--dry-run runs launch.dryrun's train_4k cell in a fresh interpreter
+    (its fake process group is process-global); --multi-pod only with it."""
+    calls = []
+    monkeypatch.setattr(launch_train.subprocess, "run",
+                        lambda cmd, env: calls.append((cmd, env)) or types.SimpleNamespace(
+                            returncode=0))
+    for extra in ([], ["--multi-pod"]):
+        with pytest.raises(SystemExit) as e:
+            launch_train.main(["--arch", "yi-6b", "--dry-run", "--torch-device", "cpu", *extra])
+        assert e.value.code == 0
+    (cmd, env), (cmd_mp, _) = calls
+    assert cmd[1:] == ["-m", "repro_torch.launch.dryrun", "--arch", "yi-6b", "--shape",
+                       "train_4k", "--out", "experiments/dryrun", "--device", "cpu"]
+    assert cmd_mp[1:] == cmd[1:] + ["--multi-pod"]
+    assert env["PYTHONPATH"].split(os.pathsep)[0] == str(Path(launch_train.__file__).resolve().parents[2])
+    with pytest.raises(SystemExit) as e:
+        launch_train.main(["--arch", "yi-6b", "--multi-pod"])
+    assert e.value.code == 2
 
 
 def test_port_files_exist():
