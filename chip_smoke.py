@@ -152,7 +152,10 @@
    parameters laid out by `spec_for(param_axes)`: a 2048-token prefill
    and 16 decode steps under `activate`, the logits against the
    unsharded model's on the same weights and the flash launches through
-   the custom op and its sharding rule; (b) two gloo ranks spawned on the
+   the custom op and its sharding rule, then one training step on the
+   prompt (the gradient constraint, flash's custom op under autograd):
+   its loss and every parameter's gradient against the unsharded
+   model's; (b) two gloo ranks spawned on the
    card, computing on CUDA with their collectives staged through the
    host: yi-6b's split-KV decode attention over a 4096-token cache split
    2 ways, heads-sharded flash prefill (16 / 2 heads a rank), `_apply_ep`
@@ -164,9 +167,18 @@
    prefill_32k and decode_32k, musicgen-large at decode_32k, rwkv6-1.6b
    at long_500k, deepseek-moe-16b at train_4k on (2, 16, 16), and
    vu_systolic's ea_round executed on the card, each cell's JSON under
-   experiments/dryrun.  (c) starts with the phase, after every timed
-   phase before it, and traces in its own process while (a) and (b) run:
-   their times share the host with it.
+   experiments/dryrun, gated: the train cells' flops per device within
+   TRAIN_FLOPS_RTOL of yi-6b's unsharded step over the world and of the
+   reference's count (REF_FLOPS), the forward cells' flops equal to
+   FWD_FLOPS, one Shard -> Shard redistribution booked as one all-to-all
+   of its bytes on a cuda and on a cpu mesh, and yi-6b train_4k's flops
+   and collective bytes the same, kind by kind, traced on either mesh.
+   (c) starts with the phase, after every timed phase before it, and
+   traces in its own process while (a) and (b) run: their times share the
+   host with it.  A (2, 2) mesh of CUDA DTensors would take four gloo
+   ranks on the card, and those crash (SIGSEGV in
+   `_c10d_functional.wait_tensor`, torch 2.11) in DTensor's first
+   redistribution: the CPU tests hold the (2, 2) mesh.
 
 Prints the card's name and power limit, one JSON line of kernel figures,
 and as its last line `{"ok": true, "device": {...}}`.  Exits non-zero,
@@ -372,6 +384,21 @@ DRYRUN_CELLS = (("yi-6b", "train_4k", False), ("yi-6b", "prefill_32k", False),
                 ("rwkv6-1.6b", "long_500k", False), ("deepseek-moe-16b", "train_4k", True),
                 ("vu_systolic", "ea_round", False))
 DRYRUN_TIMEOUT_S = 700
+# (a) also takes one training step on its prompt, loss within SHARD_TOL and
+# every gradient within SHARD_GRAD_TOL of its max |g|; (c) gates: a train
+# cell's flops per device within TRAIN_FLOPS_RTOL of an independent count:
+# yi-6b's unsharded step (one data-parallel replica's rows, divided by the
+# "model" size: the whole batch's trace divided by the world), and the
+# reference's count of the same cell (`repro.launch.dryrun` on the CPU:
+# XLA's HLO for 256 / 512 host devices), the only yardstick for
+# deepseek-moe-16b, whose sharded experts compute capacity-padded buffers
+# (the unsharded model's dispatch reads its routing to the host, which
+# fake tensors cannot); the forward cells' flops equal FWD_FLOPS (5 digits:
+# their counts before the gradient constraint, which a forward pass skips)
+SHARD_GRAD_TOL, TRAIN_FLOPS_RTOL = 1e-5, 0.03
+REF_FLOPS = {"yi-6b train_4k": 2.1562e14, "deepseek-moe-16b train_4k": 5.6950e13}
+FWD_FLOPS = {"yi-6b prefill_32k": 1.1572e14, "yi-6b decode_32k": 1.4389e10,
+             "musicgen-large decode_32k": 9.6679e9, "rwkv6-1.6b long_500k": 3.8207e8}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense
@@ -2176,21 +2203,21 @@ def time_ms(fn, iters=200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, symbol: str, iters: int = 50, traces: int = 8):
+def device_profile(fn, symbol: str, iters: int = 50, traces: int = 12):
     """(device ms, device ops) of one call of `fn`, from a torch.profiler
     trace: the kernels whose names hold `symbol` and every memset or copy
     the call issues besides (domination's launcher zeroes its counts with
     a memset above 256 rows), divided by the launches of `symbol`.  A trace
-    now and then comes back without the kernel's events (three in a row
-    once); up to `traces` are taken, half a second apart, and (None, None)
-    means none of them showed it."""
+    now and then comes back without the kernel's events (eight in a row,
+    half a second apart, at several shapes of one run); up to `traces` are
+    taken, a second apart, and (None, None) means none of them showed it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for attempt in range(traces):
         if attempt:
-            time.sleep(0.5)
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -2207,7 +2234,7 @@ def device_profile(fn, symbol: str, iters: int = 50, traces: int = 8):
     return None, None
 
 
-def device_ms(fn, symbol: str, iters: int = 50, traces: int = 8):
+def device_ms(fn, symbol: str, iters: int = 50, traces: int = 12):
     """Device ms of one call of `fn`, as `device_profile` counts it."""
     return device_profile(fn, symbol, iters, traces)[0]
 
@@ -3320,23 +3347,76 @@ def print_training(out, by_path):
 
 DRYRUN_CHILD = r"""
 import json, sys, time
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import SHAPES, input_specs
 from repro_torch.launch import dryrun
-out = {}
+from repro_torch.models import transformer as T
+from repro_torch.sharding import commcount
+from repro_torch.train import optimizer as opt
+from repro_torch.train.train_step import make_train_step
+out = {"cells": {}}
 for arch, shape, multi_pod in json.loads(sys.argv[2]):
     t0 = time.perf_counter()
     r = dryrun.run_cell(arch, shape, multi_pod, save_dir=sys.argv[1], verbose=False,
                         device="cuda")
     r["wall_s"] = time.perf_counter() - t0
-    out[f"{arch} {shape} {r['mesh']}"] = r
+    out["cells"][f"{arch} {shape} {r['mesh']}"] = r
+
+# yi-6b train_4k unsharded: one data-parallel replica's rows (16 of 256) on
+# plain fake tensors, at the cell's microbatches, over the 16 "model" ranks
+t0 = time.perf_counter()
+cfg, ss = get_arch("yi-6b"), SHAPES["train_4k"]
+with FakeTensorMode():
+    model = T.Transformer(cfg, device="cuda", dtype=torch.bfloat16)
+    params = dict(model.named_parameters())
+    state = {k: {n: torch.zeros(p.shape, device="cuda") for n, p in params.items()}
+             for k in ("master", "m", "v")}
+    state["step"] = torch.zeros((), dtype=torch.int32, device="cuda")
+    batch = {k: torch.zeros((ss.global_batch // 16,) + tuple(v.shape[1:]), dtype=v.dtype,
+                            device="cuda") for k, v in input_specs(cfg, "train_4k").items()}
+    with commcount.counting() as cc:
+        make_train_step(cfg, opt.OptConfig(), out["cells"]["yi-6b train_4k pod16x16"]["n_micro"])(
+            model, state, batch)
+out["unsharded"] = {"yi-6b train_4k": cc.report()["flops"] / 16,
+                    "seconds": time.perf_counter() - t0}
+
+# one Shard -> Shard redistribution on a cuda mesh (DTensor's all-to-all op)
+# and on a cpu mesh (its all-gather and chunk) of the same fake group
+dryrun.init_fake_group(256)
+out["alltoall"] = {}
+for dev in ("cuda", "cpu"):
+    mesh = init_device_mesh(dev, (16, 16), mesh_dim_names=("data", "model"))
+    with FakeTensorMode():
+        x = distribute_tensor(torch.empty(64, 32, device=dev), mesh, [Replicate(), Shard(1)],
+                              src_data_rank=None)
+        with commcount.counting() as cc:
+            x = x.redistribute(mesh, [Replicate(), Shard(0)])
+    out["alltoall"][dev] = dict(cc.report(), local=list(x.to_local().shape))
+
+# the yi-6b train cell again, on a cpu mesh
+out["cpu_mesh"] = dryrun.run_cell("yi-6b", "train_4k", False, verbose=False, device="cpu")
 json.dump(out, open(sys.argv[3], "w"))
 """
 
 
+def grad_diffs(got, want):
+    """{name: (max |got - want|, max |want|, within SHARD_TOL elementwise)}
+    of two gradient dicts on the card."""
+    import torch
+    return {k: ((got[k] - w).abs().max().item(), w.abs().max().item(),
+                torch.allclose(got[k], w, **SHARD_TOL)) for k, w in want.items()}
+
+
 def sharded_lm_rank(port, out_path):
     """Part (a), one process on a world-1 NCCL mesh (1, 1): yi-6b at full
-    width over SHARD_LAYERS layers, prefill and decode unsharded, then the
-    same weights as DTensors laid out by `spec_for(param_axes)` under
-    `activate`; saves both runs' logits, times and flash launches."""
+    width over SHARD_LAYERS layers, prefill, decode and one training step
+    on the prompt unsharded, then the same weights as DTensors laid out by
+    `spec_for(param_axes)` under `activate`; saves both runs' logits and
+    loss, times and flash launches, and each gradient's difference."""
     import dataclasses
 
     import torch
@@ -3348,6 +3428,7 @@ def sharded_lm_rank(port, out_path):
     from repro_torch.kernels import flash_attention
     from repro_torch.models import transformer as T
     from repro_torch.sharding import logical
+    from repro_torch.train import train_step
 
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
                             world_size=1, device_id=torch.device("cuda", 0))
@@ -3363,13 +3444,18 @@ def sharded_lm_rank(port, out_path):
         steps = torch.randint(0, cfg.vocab, (SHARD_DECODE, 1), generator=gen, device="cuda",
                               dtype=torch.int32)
 
+        batch = {"tokens": prompt.long(), "targets": torch.roll(prompt.long(), -1, 1)}
+
+        def full(t):
+            return t.full_tensor() if hasattr(t, "full_tensor") else t
+
         def serve():
             logits, caches, clen = model.prefill(prompt, SHARD_PROMPT + SHARD_DECODE)
-            out = [logits.full_tensor() if hasattr(logits, "full_tensor") else logits]
+            out = [full(logits)]
             for tok in steps:
                 logits, caches = model.decode_step(tok, caches, clen)
                 clen = clen + 1
-                out.append(logits.full_tensor() if hasattr(logits, "full_tensor") else logits)
+                out.append(full(logits))
             return torch.stack(out)
 
         res = {}
@@ -3393,6 +3479,21 @@ def sharded_lm_rank(port, out_path):
                 torch.cuda.synchronize()
                 res[name] = dict(logits=logits.cpu(), seconds=time.perf_counter() - t0,
                                  flash=flash_attention.KERNEL.launches)
+                # one training step: the gradient constraint and flash's custom op
+                model.requires_grad_(True)
+                flash_attention.KERNEL.launches = 0
+                t0 = time.perf_counter()
+                loss, _, grads = train_step.loss_and_grads(model, batch)
+                grads = {k: full(g) for k, g in grads.items()}
+                torch.cuda.synchronize()
+                res[name].update(loss=float(full(loss)), train_s=time.perf_counter() - t0,
+                                 train_flash=flash_attention.KERNEL.launches)
+                model.requires_grad_(False)
+            if name == "plain":
+                want_grads = grads
+            else:
+                res["grads"] = grad_diffs(grads, want_grads)
+            del grads
         res["param_type"] = type(model.head).__name__
         res["placements"] = str(model.head.placements)
         torch.save(res, out_path)
@@ -3534,13 +3635,21 @@ def run_sharding_phase(kernels, tmp):
         if lm["param_type"] != "DTensor":
             raise AssertionError(f"sharded run's parameters are {lm['param_type']}")
         diff = (lm["sharded"]["logits"] - lm["plain"]["logits"]).abs().max().item()
+        torch.testing.assert_close(torch.tensor(lm["sharded"]["loss"]),
+                                   torch.tensor(lm["plain"]["loss"]), **SHARD_TOL)
         out["lm"] = dict(max_abs_diff=diff, exact=diff == 0.0,
                          plain_s=lm["plain"]["seconds"], sharded_s=lm["sharded"]["seconds"],
-                         placements=lm["placements"])
+                         placements=lm["placements"], train=check_grads("(a)", lm["grads"]),
+                         loss=(lm["sharded"]["loss"], lm["plain"]["loss"]),
+                         train_s=(lm["sharded"]["train_s"], lm["plain"]["train_s"]))
         for name in ("plain", "sharded"):
             paths[f"sharding_lm_{name}"] = expect_launches(
                 f"sharding (a) {name}", dict(zero, flash_attention=lm[name]["flash"]),
                 {"flash_attention": SHARD_LAYERS})
+            paths[f"sharding_lm_train_{name}"] = expect_launches(
+                f"sharding (a) {name} training step",
+                dict(zero, flash_attention=lm[name]["train_flash"]),
+                {"flash_attention": 2 * SHARD_LAYERS})
 
         # (b) the shard-local functions over two gloo ranks on the card
         outs = [Path(tmp) / f"shard{r}.pt" for r in range(ISL_WORLD)]
@@ -3605,7 +3714,8 @@ def run_sharding_phase(kernels, tmp):
             raise AssertionError(f"the dry-run took over {DRYRUN_TIMEOUT_S} s")
     if dry.returncode != 0:
         raise AssertionError(f"the dry-run process exited {dry.returncode}")
-    cells = json.loads((Path(tmp) / "dryrun.json").read_text())
+    traced = json.loads((Path(tmp) / "dryrun.json").read_text())
+    cells = traced["cells"]
     out["dryrun_s"] = sum(v["wall_s"] for v in cells.values())
     out["dryrun_waited_s"] = time.perf_counter() - t_wait
     bad = [k for k, v in cells.items() if v["status"] != "ok"]
@@ -3615,7 +3725,55 @@ def run_sharding_phase(kernels, tmp):
            for v in cells.values()):
         raise AssertionError("a dry-run cell wrote no JSON")
     out["dryrun"] = cells
+    out["dryrun_checks"] = check_dryrun(traced)
     return out, paths
+
+
+def check_grads(what, diffs):
+    """Every gradient within SHARD_TOL elementwise, or within SHARD_GRAD_TOL
+    of its max |g|; returns (the largest such share, the gradients)."""
+    bad = {k: v for k, v in diffs.items() if not v[2] and v[0] > SHARD_GRAD_TOL * v[1]}
+    if bad or not diffs:
+        raise AssertionError(f"{what}: gradients off (max abs diff, max |g|): {bad or diffs}")
+    return max(d / max(m, 1e-30) for d, m, _ in diffs.values()), len(diffs)
+
+
+def check_dryrun(traced):
+    """The (c) gates: train cells' flops per device against the independent
+    counts, forward cells' flops against FWD_FLOPS, one Shard -> Shard
+    redistribution booked as an all-to-all of its output's bytes, and
+    nothing else, on a cuda mesh and on a cpu mesh alike, and yi-6b
+    train_4k's flops and collective bytes, kind by kind, the same on
+    either mesh."""
+    by_cell = {f"{v['arch']} {v['shape']}": v["cost"]["flops_per_device"]
+               for v in traced["cells"].values() if v["cost"]}
+    counts = {"reference": REF_FLOPS,
+              "unsharded": {"yi-6b train_4k": traced["unsharded"]["yi-6b train_4k"]}}
+    ratios = {f"{key} / {tag}": by_cell[key] / n
+              for tag, c in counts.items() for key, n in c.items()}
+    off = {k: r for k, r in ratios.items() if abs(r - 1) > TRAIN_FLOPS_RTOL}
+    if off:
+        raise AssertionError(f"train cells' flops per device off their counts: {off}")
+    moved = {k: (by_cell[k], f) for k, f in FWD_FLOPS.items()
+             if abs(by_cell[k] / f - 1) > 1e-4}
+    if moved:
+        raise AssertionError(f"forward cells' flops moved from FWD_FLOPS: {moved}")
+    a2a = traced["alltoall"]
+    want = a2a["cuda"]["local"][0] * a2a["cuda"]["local"][1] * 4
+    for dev, rep in a2a.items():
+        c = rep["collectives"]
+        if (c["all-to-all"], c["total"], rep["collective_calls"]) != (want, want,
+                                                                       {"all-to-all": 1}):
+            raise AssertionError(f"Shard -> Shard on a {dev} mesh booked {c}, "
+                                 f"{rep['collective_calls']}; expected {want} bytes of all-to-all")
+    cuda, cpu = traced["cells"]["yi-6b train_4k pod16x16"], traced["cpu_mesh"]
+    if (cpu["collectives"], cpu["cost"]["flops_per_device"]) != (
+            cuda["collectives"], cuda["cost"]["flops_per_device"]):
+        raise AssertionError(f"yi-6b train_4k on a cpu mesh: {cpu['collectives']}, "
+                             f"{cpu['cost']['flops_per_device']}; on the cuda mesh: "
+                             f"{cuda['collectives']}, {cuda['cost']['flops_per_device']}")
+    return dict(ratios=ratios, alltoall_bytes=want, unsharded_s=traced["unsharded"]["seconds"],
+                cpu_mesh_s=cpu["trace_s"])
 
 
 def print_sharding(out, card):
@@ -3635,6 +3793,19 @@ def print_sharding(out, card):
           f"{rk['max_abs_diff']['ep_free']}, capacity_factor 1.0 {rk['max_abs_diff']['ep_cap1']} "
           f"(dropped pairs move y by {rk['dropped_max']:.4f}); islands(mesh=) == group=: True; "
           f"processes {out['ranks_wall_s']:.1f} s")
+    tr = lm["train"]
+    print(f"  ({card}) (a) one training step on the prompt: loss sharded {lm['loss'][0]!r} vs "
+          f"unsharded {lm['loss'][1]!r}; {tr[1]} gradients, the largest max abs diff "
+          f"{tr[0]:.3e} of its max |g| (tol {SHARD_TOL} elementwise or {SHARD_GRAD_TOL} of max "
+          f"|g|); {lm['train_s'][0]:.3f} s sharded, {lm['train_s'][1]:.3f} s plain; flash "
+          f"launches {2 * SHARD_LAYERS} each")
+    ck = out["dryrun_checks"]
+    print(f"  (c) gates: train cells' flops per device over their counts {ck['ratios']} "
+          f"(within {TRAIN_FLOPS_RTOL}); forward cells' flops equal {FWD_FLOPS}; one "
+          f"Shard -> Shard booked {ck['alltoall_bytes']} bytes of all-to-all and nothing else "
+          f"on a cuda and a cpu mesh; the unsharded trace {ck['unsharded_s']:.1f} s; yi-6b "
+          f"train_4k traced again on a cpu mesh ({ck['cpu_mesh_s']} s): the same flops and "
+          f"collective bytes, kind by kind")
     print(f"  ({card}) (c) dry-run cells {out['dryrun_s']:.1f} s in their process (started with "
           f"this phase; waited for after (a) and (b): {out['dryrun_waited_s']:.1f} s):")
     for key, v in out["dryrun"].items():
@@ -3648,8 +3819,40 @@ def print_sharding(out, card):
               f"{v['roofline']['dominant']}, n_micro {v['n_micro']}")
 
 
-def flash_figures(errs, launches):
-    """Kernel, plain version and SDPA at the serving path's longest prefill.
+def flash_inputs(dtype, gen):
+    """q, k, v of yi-6b's heads at the serving path's longest prefill."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch(SERVE_ARCH)
+    s = max(SERVE_PROMPTS)
+    q = torch.randn(1, cfg.n_heads, s, cfg.d_head, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(1, cfg.n_kv_heads, s, cfg.d_head, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def flash_device_ms():
+    """Flash's device ms a call in f32 and bf16 at `flash_inputs`, from a
+    profiler trace taken in phase 2: taken in phase 4, after the serving
+    and training phases' traces, every trace of this call has come back
+    without the kernel's events."""
+    import torch
+
+    from repro_torch.kernels import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        q, k, v = flash_inputs(dtype, gen)
+        out[f"device_ms{tag}"] = device_ms(
+            lambda: flash_attention.flash_attention(q, k, v, True, None),
+            "flash_attention_kernel", iters=10)
+    return out
+
+
+def flash_figures(errs, launches, device):
+    """Kernel, plain version and SDPA at the serving path's longest prefill;
+    `device` holds its device ms from `flash_device_ms`.
 
     bf16 runs on the wgmma route, bounded by 989 TFLOP/s.  f32 runs on the
     tf32x3 route: three TF32 products per product, so its least time is
@@ -3677,9 +3880,7 @@ def flash_figures(errs, launches):
                bound_divides_by="tf32x3" if tf32x3_ms <= fma_ms else "fma")
     for dtype, tag, peak in ((torch.float32, "", 1e3 * n_ops / min(fma_ms, tf32x3_ms)),
                              (torch.bfloat16, "_bf16", BF16_OPS_PER_S)):
-        q = torch.randn(1, cfg_h, s, d, generator=gen, device="cuda").to(dtype)
-        k, v = (torch.randn(1, cfg_hkv, s, d, generator=gen, device="cuda").to(dtype)
-                for _ in range(2))
+        q, k, v = flash_inputs(dtype, gen)
 
         def kern():
             return flash_attention.flash_attention(q, k, v, True, None)
@@ -3695,7 +3896,7 @@ def flash_figures(errs, launches):
             f"bound_by{tag}": "bytes" if t_bytes >= t_ops else "operations",
             f"library_ms{tag}": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), iters=20),
-            f"device_ms{tag}": device_ms(kern, "flash_attention_kernel", iters=10),
+            f"device_ms{tag}": device[f"device_ms{tag}"],
         })
     return row
 
@@ -3757,6 +3958,7 @@ def main() -> int:
 
     # phase 2: every kernel against its plain version on the card
     errs, n_cases = check_kernels(np.random.default_rng(SEED))
+    flash_device = flash_device_ms()
     print(f"kernels vs plain on the card: {n_cases} cases passed, "
           f"max abs err (f32) {errs}")
     t0 = time.perf_counter()
@@ -4055,7 +4257,7 @@ def main() -> int:
                 for n in ("fused_eval", "wirelength2", "maxbbox", "domination",
                           "domination_counts", "flash_attention")}
     rows = kernel_figures(problem, runs[True]["coords"], runs[True]["objs"], errs, launches)
-    rows.append(flash_figures(errs, launches["flash_attention"]))
+    rows.append(flash_figures(errs, launches["flash_attention"], flash_device))
     rows[-1]["device_ms_in_prefill"] = None if flash_in_prefill is None else flash_in_prefill / 1e3
     shapes = slice_figures()
     plans = plan_figures(problem)

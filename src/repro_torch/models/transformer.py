@@ -33,7 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
@@ -234,6 +234,15 @@ class Transformer(nn.Module):
 
     def _embed(self, tokens: torch.Tensor,
                frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        if (logical.current() is not None and isinstance(self.embed, DTensor)
+                and not isinstance(tokens, DTensor)):
+            # tokens every rank holds whole: take this rank's batch rows, so
+            # the masked partial rows below carry a mask of their own shape
+            # (DTensor splits the rows by batch before it applies the mask)
+            tokens = distribute_tensor(tokens, *logical.named_sharding(("batch", "seq"),
+                                                                       tokens.shape),
+                                       src_data_rank=None)
+        tokens = logical.constrain(tokens, "batch", "seq")
         # F.embedding, not indexing: its backward sums each row's gradients
         # in a fixed order, where index_put's accumulation adds with atomics
         x = F.embedding(tokens, self.embed)

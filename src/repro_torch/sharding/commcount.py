@@ -11,7 +11,8 @@ ops as DTensor dispatches them.  It sums, per device:
     `_c10d_functional.all_reduce` (and c10d's in-place `allreduce_`) ->
     all-reduce, `all_gather_into_tensor` -> all-gather,
     `reduce_scatter_tensor` -> reduce-scatter, `all_to_all_single` ->
-    all-to-all, send / recv -> collective-permute;
+    all-to-all, send / recv -> collective-permute, and DTensor's Shard ->
+    Shard redistribution -> all-to-all (see `counting`);
   * dot flops, 2 x |out| x |contraction| of every mm / addmm / bmm /
     baddbmm, and 4 B H S T D for a flash-attention call (its two products,
     the causal half not subtracted);
@@ -35,7 +36,7 @@ from collections import defaultdict
 from typing import Dict
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 from torch.distributed.tensor._sharding_prop import ShardingPropagator
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -62,7 +63,7 @@ _FREE = {"aten.empty", "aten.empty_strided", "aten.empty_like", "aten.zeros",
          "aten.ones", "aten.full", "aten.arange", "prim.device", "aten.detach",
          "_c10d_functional.wait_tensor"}
 
-_PROPAGATING = [0]
+_UNCOUNTED = [0]
 
 
 def _name(func) -> str:
@@ -112,7 +113,7 @@ class CommCount(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **kwargs)
-        if _PROPAGATING[0]:
+        if _UNCOUNTED[0]:
             return out
         name = _name(func)
         outs = _tensors(out)
@@ -146,20 +147,39 @@ class CommCount(TorchDispatchMode):
 @contextlib.contextmanager
 def counting():
     """A `CommCount` active, with DTensor's metadata propagation left out
-    of its sums."""
-    orig = ShardingPropagator._propagate_tensor_meta_non_cached
+    of its sums and each Shard -> Shard redistribution booked as one
+    all-to-all of its output's bytes.  DTensor runs that all-to-all as
+    `_dtensor.shard_dim_alltoall` on a CUDA mesh and as an all-gather and
+    a chunk on a CPU one; `Shard._to_new_shard_dim`, which both go
+    through, is counted instead of the ops inside it, so a cell counts
+    the same on either."""
+    orig_meta = ShardingPropagator._propagate_tensor_meta_non_cached
+    orig_a2a = Shard._to_new_shard_dim
+    mode = CommCount()
 
     def marked(self, op_schema):
-        _PROPAGATING[0] += 1
+        _UNCOUNTED[0] += 1
         try:
-            return orig(self, op_schema)
+            return orig_meta(self, op_schema)
         finally:
-            _PROPAGATING[0] -= 1
+            _UNCOUNTED[0] -= 1
+
+    def all_to_all(self, *args, **kwargs):
+        _UNCOUNTED[0] += 1
+        try:
+            out = orig_a2a(self, *args, **kwargs)
+        finally:
+            _UNCOUNTED[0] -= 1
+        if not _UNCOUNTED[0]:
+            mode.collectives["all-to-all"] += _nbytes(out)
+            mode.calls["all-to-all"] += 1
+        return out
 
     ShardingPropagator._propagate_tensor_meta_non_cached = marked
-    mode = CommCount()
+    Shard._to_new_shard_dim = all_to_all
     try:
         with mode:
             yield mode
     finally:
-        ShardingPropagator._propagate_tensor_meta_non_cached = orig
+        ShardingPropagator._propagate_tensor_meta_non_cached = orig_meta
+        Shard._to_new_shard_dim = orig_a2a

@@ -175,17 +175,37 @@ def placements(spec: Spec, mesh) -> Tuple:
     return tuple(out)
 
 
+class _LayGradient(torch.autograd.Function):
+    """The identity, whose backward redistributes the incoming gradient to
+    the placements `want`: the transpose of a sharding constraint is the
+    same constraint, as with the reference's `with_sharding_constraint`."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        ctx.mesh, ctx.want = mesh, want
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.want:
+            g = g.redistribute(ctx.mesh, ctx.want)
+        return g, None, None
+
+
 def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
-    """Redistribute a DTensor to the layout of its logical axes; the
-    identity on a plain tensor or without an active context."""
+    """Redistribute a DTensor to the layout of its logical axes, and lay
+    its gradient out alike (also where the value is laid out so already);
+    the identity on a plain tensor or without an active context."""
     ctx = current()
     if ctx is None or not isinstance(x, DTensor):
         return x
     mesh, rules = ctx
     want = placements(spec_for(axes, x.shape, mesh, rules), mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(mesh, want)
+    if tuple(x.placements) != want:
+        x = x.redistribute(mesh, want)
+    if x.requires_grad and torch.is_grad_enabled():
+        x = _LayGradient.apply(x, mesh, want)
+    return x
 
 
 def named_sharding(axes: Sequence[Optional[str]], shape: Sequence[int],

@@ -1,6 +1,6 @@
 """The port's sharded paths across processes and its dry-run, on the CPU.
 
-Three processes for the module, started together:
+Four groups of processes for the module, started together:
 - one spawn of 2 `gloo` ranks (a `FileStore` under tmp_path, joins bounded
   by `JOIN_S`) on a (1, 2) ("data", "model") mesh, each running, on reduced
   configs with weights from a seed:
@@ -19,12 +19,24 @@ Three processes for the module, started together:
     `evolve.run_islands(mesh=)`, bit for bit;
   - `checkpoint.restore(shardings=)` of a tree saved unsharded, and that
     DTensor tree saved again from both ranks;
-- one reference process with 2 forced XLA host devices, which runs the
+- one spawn of 4 `gloo` ranks on a (2, 2) ("data", "model") mesh, the
+  production layout's shape, with tokens fed as a plain tensor: reduced
+  yi-6b's prefill, 3 decode steps, training loss and every gradient, and
+  reduced deepseek-moe's prefill logits, against the unsharded port; and
+  reduced deepseek-moe's training loss, aux and every gradient, capacity
+  not binding, against the reference's own program on a (2, 2) mesh (the
+  aux there is the mean of each shard's Switch term, not the unsharded
+  model's);
+- one reference process with 4 forced XLA host devices, which runs the
   reference's `_apply_ep` (shard_map) on the same MoE layer and input at
-  capacity_factor 1.0: the port's 2-rank result must equal it within 1e-5;
-- one process with a fake process group of 256 ranks, which runs the
-  port's dry-run on reduced yi-6b at decode_32k on (16, 16) and counts an
-  L-layer matmul stack's flops under `commcount`.
+  capacity_factor 1.0 on 2 of them (the port's 2-rank result must equal it
+  within 1e-5), and reduced deepseek-moe's `loss_fn` and gradients on a
+  (2, 2) mesh of all 4;
+- one process with a fake process group, which runs the port's dry-run on
+  reduced yi-6b at decode_32k on (16, 16), counts an L-layer matmul
+  stack's flops and one Shard -> Shard redistribution under `commcount`,
+  and then, on a fake (2, 2) mesh, a reduced yi-6b train step's flops per
+  device against the same step unsharded.
 """
 import copy
 import dataclasses
@@ -59,6 +71,7 @@ from repro_torch.train import train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD, JOIN_S, SEED = 2, 300, 3
+MESH22 = (2, 2)                    # ("data", "model") on 4 ranks
 PROMPT, MAX_LEN, STEPS = (2, 12), 16, 3
 MOE_X = (2, 8)                     # [B, S] tokens into the MoE layer
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -137,10 +150,9 @@ def _train(plain, sharded, tokens, mesh, rules):
                 got=[_full(got_loss), _full(got_m["aux"])] + [_full(got_g[k]) for k in sorted(got_g)])
 
 
-def _moe_train(mesh, rules):
-    """Reduced deepseek-moe-16b's training loss and gradients on `mesh`,
-    capacity not binding: expert parallel on (1, 2), every expert on each
-    rank's batch shard on (2, 1)."""
+def _deepseek():
+    """Reduced deepseek-moe-16b with weights from SEED, capacity not binding,
+    and its tokens."""
     cfg = tbase.get_reduced("deepseek-moe-16b")
     plain = TT.Transformer(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
     for layer in plain.modules():
@@ -148,7 +160,26 @@ def _moe_train(mesh, rules):
             layer.args = dataclasses.replace(layer.args, capacity_factor=100.0)
     tokens = torch.tensor(np.random.default_rng(SEED + 1).integers(0, cfg.vocab, PROMPT),
                           dtype=torch.int32)
+    return plain, tokens
+
+
+def _moe_train(mesh, rules):
+    """Reduced deepseek-moe-16b's training loss and gradients on `mesh`,
+    capacity not binding: expert parallel on (1, 2), every expert on each
+    rank's batch shard on (2, 1), both on (2, 2)."""
+    plain, tokens = _deepseek()
     return _train(plain, _distributed(copy.deepcopy(plain), mesh), tokens, mesh, rules)
+
+
+def _moe_prefill(mesh, rules):
+    """Reduced deepseek-moe-16b's last-token prefill logits, unsharded
+    (`want`) and on `mesh` (`got`)."""
+    plain, tokens = _deepseek()
+    sharded = _distributed(copy.deepcopy(plain), mesh)
+    want = plain.prefill(tokens, MAX_LEN)[0]
+    with logical.activate(mesh, rules):
+        got = _full(sharded.prefill(tokens, MAX_LEN)[0])
+    return dict(want=want, got=got)
 
 
 def _moe(mesh, rules, weights, x, capacity_factor):
@@ -228,24 +259,81 @@ def _rank_main(rank, store_path, out_path, ckpt_dir):
         raise
 
 
+def _mesh22_main(rank, store_path, out_path):
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        world = math.prod(MESH22)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=JOIN_S))
+        mesh = init_device_mesh("cpu", MESH22, mesh_dim_names=("data", "model"))
+        rules = logical.default_rules()
+        out = {"lm": _lm(mesh, rules), "moe_prefill": _moe_prefill(mesh, rules),
+               "moe_train": _moe_train(mesh, rules)["got"]}
+        torch.save(out, out_path)
+        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        raise
+
+
 REFERENCE = textwrap.dedent("""
     import os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import dataclasses
     import numpy as np
     import jax, jax.numpy as jnp
     from repro.configs import get_reduced
     from repro.models import moe
+    from repro.models import transformer as RT
     from repro.runtime.jaxcompat import make_mesh
     from repro.sharding import logical
     d = np.load(sys.argv[1])
     a = dataclasses.replace(get_reduced("deepseek-moe-16b").moe_args(), capacity_factor=1.0)
     p = {k: jnp.asarray(d[k]) for k in ("router", "wg", "wu", "wd")}
     p["shared"] = {k: jnp.asarray(d["shared." + k]) for k in ("wg", "wu", "wd")}
-    mesh = make_mesh((1, 2), ("data", "model"))
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:2]).reshape(1, 2), ("data", "model"))
     with logical.activate(mesh, logical.default_rules()):
         y, aux = jax.jit(lambda p, x: moe.apply(p, a, x))(p, jnp.asarray(d["x"]))
     np.savez(sys.argv[2], y=np.asarray(y), aux=np.asarray(aux))
+
+    # reduced deepseek-moe's loss and gradients on (2, 2), the port's weights
+    # (blocks.<layer>.<path> -> blocks[layer % period][path][layer // period])
+    w = np.load(sys.argv[3])
+    cfg = get_reduced("deepseek-moe-16b")
+    free = RT.ArchConfig.moe_args
+    RT.ArchConfig.moe_args = lambda c: dataclasses.replace(free(c), capacity_factor=100.0)
+
+    def layers(pos):
+        return range(pos, cfg.n_layers, cfg.period)
+
+    def fill(node, prefix, pos):
+        return {k: fill(v, f"{prefix}{k}.", pos) if isinstance(v, dict) else
+                jnp.stack([jnp.asarray(w[f"blocks.{l}.{prefix}{k}"]) for l in layers(pos)])
+                for k, v in node.items()}
+
+    def flat(node, prefix, pos, out):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                flat(v, f"{prefix}{k}.", pos, out)
+            else:
+                for l in layers(pos):
+                    out[f"blocks.{l}.{prefix}{k}"] = np.asarray(v)[l // cfg.period]
+        return out
+
+    like = RT.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
+    params = {k: jnp.asarray(w[k]) for k in ("embed", "ln_f", "head")}
+    params["blocks"] = [fill(b, "", pos) for pos, b in enumerate(like["blocks"])]
+    tokens = jnp.asarray(w["tokens"])
+    batch = {"tokens": tokens, "targets": jnp.roll(tokens, -1, 1)}
+    with logical.activate(make_mesh((2, 2), ("data", "model")), logical.default_rules()):
+        (loss, m), g = jax.jit(jax.value_and_grad(lambda p, b: RT.loss_fn(p, cfg, b),
+                                                  has_aux=True))(params, batch)
+    out = {k: np.asarray(g[k]) for k in ("embed", "ln_f", "head")}
+    for pos, b in enumerate(g["blocks"]):
+        flat(b, "", pos, out)
+    np.savez(sys.argv[4], loss=np.asarray(loss), aux=np.asarray(m["aux"]), **out)
 """)
 
 FAKE = textwrap.dedent("""
@@ -271,54 +359,118 @@ FAKE = textwrap.dedent("""
     out["stack_flops"] = cc.report()["flops"]
     out["stack_collectives"] = cc.report()["collectives"]["total"]
     out["stack"] = [L, M, K]
+    with FakeTensorMode():
+        x = distribute_tensor(torch.empty(64, 32), mesh, logical.placements((None, "model"), mesh),
+                              src_data_rank=None)
+        with commcount.counting() as cc:
+            x = x.redistribute(mesh, logical.placements(("model", None), mesh))
+    out["alltoall"] = dict(cc.report(), local=list(x.to_local().shape))
+
+    # a reduced train step on a fake (2, 2) mesh and unsharded, at 256 tokens
+    # a row (at 4096 the attention's flops, split either way, hide the rest)
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import base as cbase
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    cbase.SHAPES["train_256"] = cbase.ShapeSpec("train_256", 256, 16, "train")
+    cfg, rules = cbase.get_reduced("yi-6b"), logical.default_rules()
+    dryrun.init_fake_group(4)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    with FakeTensorMode(), logical.activate(mesh, rules):
+        fn, _, n_micro = dryrun.build_cell(cfg, "train_256", mesh, rules, "cpu")
+        with commcount.counting() as cc:
+            fn()
+    out["train_sharded_flops"] = cc.report()["flops"]
+    with FakeTensorMode():
+        model = T.Transformer(cfg, device="cpu", dtype=torch.bfloat16)
+        params = dict(model.named_parameters())
+        state = {k: {n: torch.zeros(p.shape) for n, p in params.items()}
+                 for k in ("master", "m", "v")}
+        state["step"] = torch.zeros((), dtype=torch.int32)
+        batch = {k: torch.zeros(v.shape, dtype=v.dtype)
+                 for k, v in cbase.input_specs(cfg, "train_256").items()}
+        with commcount.counting() as cc:
+            make_train_step(cfg, opt.OptConfig(), n_micro)(model, state, batch)
+    out["train_unsharded_flops"] = cc.report()["flops"]
     json.dump(out, open(sys.argv[2], "w"))
 """)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The two ranks' results, the reference's `_apply_ep` and the dry-run
-    cell, from three processes started together."""
+    """The 2 and 4 ranks' results, the reference's `_apply_ep` and (2, 2)
+    training, and the fake-group counts, from processes started together.
+    A group that fails or hangs fails only the tests that read it."""
     tmp = tmp_path_factory.mktemp("sharding_dist")
     weights, x = _moe_inputs()
     np.savez(tmp / "moe.npz", x=x, **weights)
+    plain, tokens = _deepseek()
+    np.savez(tmp / "deepseek.npz", tokens=tokens.numpy(),
+             **{k: v.detach().numpy() for k, v in plain.named_parameters()})
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
-    ref = subprocess.Popen([sys.executable, "-c", REFERENCE, str(tmp / "moe.npz"),
-                            str(tmp / "ref.npz")], env=env)
-    fake = subprocess.Popen([sys.executable, "-c", FAKE, str(tmp / "dryrun"),
-                             str(tmp / "fake.json")], env=env)
+    subs = {"ref": subprocess.Popen([sys.executable, "-c", REFERENCE, str(tmp / "moe.npz"),
+                                     str(tmp / "ref.npz"), str(tmp / "deepseek.npz"),
+                                     str(tmp / "ref22.npz")], env=env),
+            "fake": subprocess.Popen([sys.executable, "-c", FAKE, str(tmp / "dryrun"),
+                                      str(tmp / "fake.json")], env=env)}
     ctx = multiprocessing.get_context("spawn")
     outs = [tmp / f"rank{r}.pt" for r in range(WORLD)]
-    procs = [ctx.Process(target=_rank_main, args=(r, str(tmp / "store"), str(outs[r]),
-                                                  str(tmp / "ckpt")))
-             for r in range(WORLD)]
-    for proc in procs:
-        proc.start()
+    outs22 = [tmp / f"mesh22_rank{r}.pt" for r in range(math.prod(MESH22))]
+    groups = {
+        "ranks": [ctx.Process(target=_rank_main, args=(r, str(tmp / "store"), str(outs[r]),
+                                                       str(tmp / "ckpt")))
+                  for r in range(WORLD)],
+        "mesh22": [ctx.Process(target=_mesh22_main, args=(r, str(tmp / "store22"),
+                                                          str(outs22[r])))
+                   for r in range(len(outs22))]}
+    for procs in groups.values():
+        for proc in procs:
+            proc.start()
     deadline = time.monotonic() + JOIN_S
-    for proc in procs:
-        proc.join(max(deadline - time.monotonic(), 0))
-    hung = [p.pid for p in procs if p.is_alive()]
-    for proc in procs:
-        if proc.is_alive():
-            proc.kill()
-            proc.join(5)
-    codes = []
-    for p in (ref, fake):
+    failed = {}
+    for name, procs in groups.items():
+        for proc in procs:
+            proc.join(max(deadline - time.monotonic(), 0))
+        hung = [p.pid for p in procs if p.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(5)
+        if hung:
+            failed[name] = f"ranks {hung} did not finish within {JOIN_S} s"
+        elif any(p.exitcode for p in procs):
+            failed[name] = f"exit codes {[p.exitcode for p in procs]}"
+    for name, p in subs.items():
         try:
-            codes.append(p.wait(max(deadline - time.monotonic(), 1)))
+            code = p.wait(max(deadline - time.monotonic(), 1))
         except subprocess.TimeoutExpired:
             p.kill()
-            codes.append("timeout")
-    assert not hung, f"ranks {hung} did not finish within {JOIN_S} s"
-    assert [p.exitcode for p in procs] == [0] * WORLD
-    assert codes == [0, 0], f"reference / fake-group processes: {codes}"
-    return dict(ranks=[torch.load(o, weights_only=False) for o in outs],
-                ref=dict(np.load(tmp / "ref.npz")),
-                fake=json.loads((tmp / "fake.json").read_text()))
+            code = "timeout"
+        if code != 0:
+            failed[name] = f"exit code {code}"
+    out = dict(failed=failed)
+    if "ranks" not in failed:
+        out["ranks"] = [torch.load(o, weights_only=False) for o in outs]
+    if "mesh22" not in failed:
+        out["mesh22"] = [torch.load(o, weights_only=False) for o in outs22]
+    if "ref" not in failed:
+        out["ref"] = dict(np.load(tmp / "ref.npz"))
+        out["ref22"] = dict(np.load(tmp / "ref22.npz"))
+    if "fake" not in failed:
+        out["fake"] = json.loads((tmp / "fake.json").read_text())
+    return out
+
+
+def _read(runs, *names):
+    """The results of the named process groups; fails if one of them failed."""
+    bad = {n: runs["failed"][n] for n in names if n in runs["failed"]}
+    assert not bad, f"process groups failed: {bad}"
+    return [runs[n] for n in names] if len(names) > 1 else runs[names[0]]
 
 
 def test_sharded_prefill_and_split_kv_decode_equal_unsharded(runs):
-    for rank in runs["ranks"]:
+    for rank in _read(runs, "ranks"):
         lm = rank["lm"]
         torch.testing.assert_close(lm["got"], lm["want"], **TOL)
         # prefill leaves the cache on its kv heads (the reference's rule: kv_heads
@@ -329,7 +481,7 @@ def test_sharded_prefill_and_split_kv_decode_equal_unsharded(runs):
 
 
 def test_sharded_loss_and_gradients_equal_unsharded(runs):
-    for rank in runs["ranks"]:
+    for rank in _read(runs, "ranks"):
         t = rank["lm"]["train"]
         assert len(t["got"]) == len(t["want"]) > 20
         for got, want in zip(t["got"], t["want"]):
@@ -337,7 +489,7 @@ def test_sharded_loss_and_gradients_equal_unsharded(runs):
 
 
 def test_apply_ep_without_binding_capacity_equals_dense(runs):
-    for rank in runs["ranks"]:
+    for rank in _read(runs, "ranks"):
         m = rank["moe_free"]
         torch.testing.assert_close(m["y"], m["dense"], **TOL)
         assert m["aux"].shape == () and torch.isfinite(m["aux"])
@@ -345,7 +497,7 @@ def test_apply_ep_without_binding_capacity_equals_dense(runs):
 
 @pytest.mark.parametrize("shape", [(1, WORLD), (WORLD, 1)], ids=["experts", "batch"])
 def test_moe_loss_and_gradients_equal_unsharded(runs, shape):
-    for rank in runs["ranks"]:
+    for rank in _read(runs, "ranks"):
         t = rank["moe_train"][shape]
         assert len(t["got"]) == len(t["want"]) > 20 and float(t["want"][1]) > 0
         for got, want in zip(t["got"], t["want"]):
@@ -353,8 +505,8 @@ def test_moe_loss_and_gradients_equal_unsharded(runs, shape):
 
 
 def test_apply_ep_drops_the_reference_pairs(runs):
-    ref = runs["ref"]
-    for rank in runs["ranks"]:
+    ranks, ref = _read(runs, "ranks", "ref")
+    for rank in ranks:
         m = rank["moe_cap1"]
         np.testing.assert_allclose(m["y"].numpy(), ref["y"], **TOL)
         np.testing.assert_allclose(float(m["aux"]), float(ref["aux"]), **TOL)
@@ -368,7 +520,7 @@ def _equal(a, b):
 
 
 def test_islands_over_a_mesh_equal_the_group_path(runs):
-    for rank in runs["ranks"]:
+    for rank in _read(runs, "ranks"):
         assert _equal(rank["islands_mesh"], rank["islands_group"])
         assert _equal(rank["run_islands_mesh"], rank["run_islands_group"])
         assert rank["no_axis"].startswith("ValueError") and "islands" in rank["no_axis"]
@@ -376,7 +528,7 @@ def test_islands_over_a_mesh_equal_the_group_path(runs):
 
 def test_restore_onto_a_mesh(runs):
     w = torch.arange(48, dtype=torch.float32).reshape(8, 6)
-    for r, rank in enumerate(runs["ranks"]):
+    for r, rank in enumerate(_read(runs, "ranks")):
         got = rank["restore"]
         assert torch.equal(got["full"][0], w)
         assert torch.equal(got["full"][1], torch.arange(4, dtype=torch.float32))
@@ -405,7 +557,7 @@ def _closed_form_argument_bytes():
 
 
 def test_dry_run_cell_on_a_fake_group(runs):
-    out = runs["fake"]
+    out = _read(runs, "fake")
     assert out["status"] == "ok", out.get("error")
     assert out["memory"]["argument_bytes"] == _closed_form_argument_bytes()
     assert out["collectives"]["total"] > 0 and out["collectives"]["all-reduce"] > 0
@@ -415,3 +567,61 @@ def test_dry_run_cell_on_a_fake_group(runs):
     L, M, K = out["stack"]
     assert out["stack_flops"] == L * 2 * (M // 16) * K * K
     assert out["stack_collectives"] == 0
+
+
+def test_mesh22_prefill_decode_and_training_equal_unsharded(runs):
+    """yi-6b on (2, 2) with plain tokens: the vocab-sharded embedding's
+    masked rows are reduced under the batch split."""
+    for rank in _read(runs, "mesh22"):
+        lm = rank["lm"]
+        torch.testing.assert_close(lm["got"], lm["want"], **TOL)
+        assert lm["prefill_placements"] == "(Shard(dim=0), Shard(dim=1))"
+        assert lm["cache_placements"] == "(Shard(dim=0), Shard(dim=2))"
+        assert lm["cache_local"][0] == PROMPT[0] // MESH22[0]
+        assert lm["cache_local"][2] == MAX_LEN // MESH22[1]
+        t = lm["train"]
+        assert len(t["got"]) == len(t["want"]) > 20
+        for got, want in zip(t["got"], t["want"]):
+            torch.testing.assert_close(got, want, **TOL)
+
+
+def test_mesh22_moe_prefill_equals_unsharded(runs):
+    for rank in _read(runs, "mesh22"):
+        m = rank["moe_prefill"]
+        torch.testing.assert_close(m["got"], m["want"], **TOL)
+
+
+def test_mesh22_moe_training_equals_the_reference_on_2x2(runs):
+    """Loss, aux and every gradient against the reference's `loss_fn` on a
+    (2, 2) mesh: batch and experts both sharded, so the aux is the mean of
+    each batch shard's Switch term, in both packages."""
+    mesh22, ref = _read(runs, "mesh22", "ref22")
+    plain, _ = _deepseek()
+    names = sorted(n for n, _ in plain.named_parameters())
+    assert sorted(k for k in ref if k not in ("loss", "aux")) == names
+    want = [ref["loss"], ref["aux"]] + [ref[k] for k in names]
+    assert float(ref["aux"]) > 0
+    for rank in mesh22:
+        got = rank["moe_train"]
+        assert len(got) == len(want)
+        for name, g, w in zip(["loss", "aux"] + names, got, want):
+            np.testing.assert_allclose(g.detach().numpy(), w, **TOL, err_msg=name)
+
+
+def test_shard_to_shard_books_one_all_to_all(runs):
+    """On a CPU mesh DTensor gathers and chunks in place of the all-to-all;
+    `commcount` books the all-to-all, of the output's bytes, and no gather."""
+    a2a = _read(runs, "fake")["alltoall"]
+    assert a2a["local"] == [64 // 16, 32]
+    want = 64 // 16 * 32 * 4
+    assert a2a["collectives"] == {"all-reduce": 0.0, "all-gather": 0.0, "reduce-scatter": 0.0,
+                                  "all-to-all": want, "collective-permute": 0.0, "total": want}
+    assert a2a["collective_calls"] == {"all-to-all": 1}
+
+
+def test_train_cell_flops_per_device_are_the_unsharded_share(runs):
+    """A gradient laid out as its value is: no rank runs a backward matmul
+    at full width, so a device's flops are the unsharded step's / 4."""
+    out = _read(runs, "fake")
+    share = out["train_unsharded_flops"] / math.prod(MESH22)
+    assert out["train_sharded_flops"] == pytest.approx(share, rel=0.02)
